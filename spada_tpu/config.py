@@ -5,15 +5,16 @@ The reference scatters its tuning surface across a JSON file
 constants (``simulator.rs:449-455``, ``scheduler.rs:203``,
 ``rowwise_perf_adjust.rs:125-126``, ``rowwise_adjust.rs:227-234``,
 ``colwise_reg_adjust.rs:39``).  Here every one of those knobs is surfaced in a
-single dataclass, together with the TPU-native tunables that replace the
-simulated micro-architecture.
+single dataclass, together with the execution tunables that replace the
+simulated micro-architecture.  Peak rates of the devices live in
+:mod:`spada_tpu.platform`, not here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional, Tuple
+from typing import Tuple
 
 
 @dataclasses.dataclass
@@ -52,17 +53,15 @@ class SpadaConfig:
     cost_miss_weight: int = 100          # DRAM-traffic weight in the cost metric
     colwise_block_width: int = 8         # scheme-1 fixed block width
 
-    # ---- TPU-native execution knobs (new; replace the simulated uarch) ----
-    tile_n: int = 128                    # output-tile lane width (MXU column dim)
-    tile_k: int = 128                    # contraction-tile depth (MXU row dim)
+    # ---- execution knobs (new; replace the simulated uarch) ----
+    tile_n: int = 128                    # output-tile width
+    tile_k: int = 128                    # contraction-tile depth
     tm_choices: Tuple[int, ...] = (8, 16, 32, 64, 128)  # candidate row-panel heights
     default_tm: int = 128
     dataflow: str = "spada"              # 'spada' | 'ip' | 'op' | 'rowwise'
-    vmem_limit_bytes: Optional[int] = None
-    engine: str = "auto"                 # 'auto' | 'streaming' | 'cached' | 'panel' | 'xla' | 'pallas_grid'
+    engine: str = "auto"                 # 'auto' | 'xla' | 'triton'
     engine_dtype: str = "float32"        # tile dtype: 'float32' | 'bfloat16'
-    use_pallas: Optional[bool] = None    # legacy: True forces 'pallas_grid'
-    precision: str = "highest"           # 'highest' (true f32) | 'default' (bf16 MXU)
+    precision: str = "highest"           # 'highest' (true f32) | 'default' (bf16/TF32)
     acc_dtype: str = "float32"
     # memory budget for densifying C in the outer-product path (bytes)
     dense_c_budget: int = 2 << 30
@@ -72,49 +71,32 @@ class SpadaConfig:
     #  lifted to the density axis)
     element_cap: int = 512
     element_dispatch: str = "auto"
-    # element numeric executor: 'auto' (pallas on TPU — its cross-sublane
-    # reduces beat XLA's minor-dim reduces, 1.03 vs 1.20 ms on locpl-64k;
-    # xla elsewhere, where pallas would run interpreted), 'xla' (fused
-    # elementwise/reduce ops), or 'pallas' (pipelined streaming kernels,
-    # ops/element_stream)
-    element_backend: str = "auto"
     # plan-time layout densification inside spgemm() (C-invariant subset:
     # k-grid anchor + k permutation; row permutations need the caller to
     # carry an inverse, so they only apply via preprocess_densified/CLI)
     densify: str = "auto"                # 'auto' | 'off'
 
-    # measured per-work-item non-MXU overhead by tile edge (v5e, cached
-    # engine, honest harness — tools/probe_item_overhead.py; slot configs
-    # (12,24,8,8)/(12,24,8,8)/(6,10,4,6)/(6,10,4,2)).  The T=512 value is
-    # low because ogroup=2 keeps the f32 accumulators VMEM-cheap there.
-    # The previous values (0.15/0.49/1.26/2.49 us) were fitted under the
-    # old harness, whose phantom operand pass grew with tile bytes and
-    # biased the planner toward small T.
-    engine_item_overhead_s: dict = dataclasses.field(
-        default_factory=lambda: {128: 0.18e-6, 256: 0.31e-6,
-                                 384: 0.72e-6, 512: 0.23e-6}
-    )
-    # per-item decomposition fitted to the same measurements (non-MXU part
-    # scales with the f32 accumulate footprint tm*tn; see BENCH_NOTES.md):
-    # t_item = 2*tm*tk*tn/peak + acc*tm*tn + fixed
-    engine_acc_s_per_elem: float = 4.8e-12
-    engine_item_fixed_s: float = 60e-9
-
-    # ---- HBM roofline constants of the target chip (v5e defaults) ----
-    hbm_bytes_per_s: float = 819e9
-    peak_flops_f32: float = 98e12
-    peak_flops_bf16: float = 197e12
-    # per-link one-way ICI bandwidth (v5e: 4 links / chip, 2-D torus;
-    # ~45 GB/s each way per link) — the weak-scaling projection input
-    ici_bytes_per_s: float = 45e9
-    ici_links: int = 4
+    # time model of the tile kernel, used by every tile cost model:
+    #   t = max(bytes / BW, flops / (engine_flops_share * peak))
+    #       + engine_c_elem_s * (C tiles * tm * tn)
+    # with BW and peak the modelled target's (platform.MODEL_TARGET).
+    # Least-squares fit to the kernel's times at T = 128..512 on the nn
+    # and banded operands, on an NVIDIA H100 80GB HBM3 at a 400 W power
+    # limit (PERF.md, "Kernel decisions"): the kernel runs at ~0.40 of the
+    # published bf16 peak, and each C-tile element costs ~4.8 ps of
+    # per-program set-up and store.
+    engine_flops_share: float = 0.40
+    engine_c_elem_s: float = 4.8e-12
+    # the element executor's measured share of the modelled HBM rate:
+    # XLA's fused multiply + row sum streamed stencil7 (1.04 GB) at 0.49
+    # of 3.35 TB/s on the same card (PERF.md, "Kernel decisions")
+    element_bw_share: float = 0.49
 
     @classmethod
     def fast(cls, **overrides) -> "SpadaConfig":
-        """Throughput profile: bf16 tiles, fast MXU passes, adaptive tile
-        size (the bench configuration).  Accuracy: ~bf16 input rounding
-        (values within ~0.5% of f32); use the default profile for the
-        scipy-exact f32 path."""
+        """Throughput profile: bf16 tiles with f32 accumulation, adaptive
+        tile size.  Accuracy: ~bf16 input rounding (values within ~0.5% of
+        f32); use the default profile for the scipy-exact f32 path."""
         cfg = cls(engine_dtype="bfloat16", precision="default", **overrides)
         return cfg
 

@@ -283,7 +283,7 @@ def block_random_csr(
 ) -> CsrMatrix:
     """Random block-sparse matrix (FEM / chemistry class): a sparse pattern
     of dense-ish ``block``-sized blocks — the clustered regime where the
-    tile engine's MXU products run near full occupancy."""
+    tile engine's tile products run near full occupancy."""
     rng = np.random.default_rng(seed)
     nb = -(-n // block)
     n_blocks = max(int(nb * nb * block_density), nb)
@@ -384,7 +384,7 @@ def localized_powerlaw_csr(
     Most of a row's columns fall in a window around the diagonal (graph
     communities / register blocking in SuiteSparse matrices); a fraction go
     to uniform "hub" columns.  Unlike :func:`powerlaw_csr`'s uniform columns,
-    this produces nonempty MXU tiles — the irregular-but-clustered regime the
+    this produces nonempty tiles — the irregular-but-clustered regime the
     adaptive planner (and the reference's adaptive dataflow) targets.
     """
     rng = np.random.default_rng(seed)
@@ -408,9 +408,8 @@ def stencil_5pt_csr(nx: int, ny: int, dtype=np.float64) -> CsrMatrix:
 
     The structure of a large fraction of SuiteSparse's PDE matrices
     (apache, ecology, thermal, parabolic_fem...) — a deterministic
-    real-structure workload constructible without downloads (VERDICT
-    round-4 missing #1; the reference loads this class from disk,
-    main.rs:39).  Row (i, j): diagonal 4, the four grid neighbours -1.
+    real-structure workload constructible without downloads (the
+    reference loads this class from disk, main.rs:39).  Row (i, j): diagonal 4, the four grid neighbours -1.
     """
     n = nx * ny
     i = np.arange(n, dtype=np.int64)

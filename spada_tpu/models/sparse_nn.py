@@ -8,7 +8,7 @@ payloads are dense arrays, so sparse-structure-fixed training works with
 plain ``jax.grad``.
 
 ``spmm`` is the dense-right-hand-side sibling of the worklist engine: one
-MXU product per nonzero weight tile per activation slab, segment-summed into
+tile product per nonzero weight tile per activation slab, segment-summed into
 row panels (the same multiply-merge dataflow with a trivially dense merge).
 
 ``make_sharded_train_step`` shards activations' batch over ``dp`` and the

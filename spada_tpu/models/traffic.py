@@ -19,9 +19,7 @@ reference's storage layer and legacy traffic model:
   ``output_base_addr`` (main.rs:65), so young psums outrank all B rows on the
   shared number line.  The victim is the MINIMUM ``[priority, addr]``
   (``BinaryHeap<Reverse<_>>``, storage.rs:546-563) — an LRU-style online
-  policy with *no* future knowledge.  (Belady planning exists only in
-  ops/cacheplan.py for the real kernel, where the host legitimately knows the
-  whole schedule ahead of time.)  When the resident B words cannot cover a
+  policy with *no* future knowledge.  When the resident B words cannot cover a
   space request, an arbitrary psum row is evicted instead (storage.rs:603-611;
   the reference takes HashMap iteration order — this model deterministically
   takes the lowest psum address).  Clean drop for B rows, write-back to psum

@@ -1,15 +1,19 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-Built lazily with g++ into ``_build/`` on first use; every caller has a pure
-NumPy fallback, so the package works without a toolchain.  See
-``spada_native.cpp`` for what is implemented natively and why.
+Built with g++ into ``_build/`` on first use, keyed on a hash of
+``spada_native.cpp``: a library built from other source is never loaded,
+and one that fails to load is rebuilt once.  Every caller has a pure NumPy
+fallback; when the library is unavailable the reason goes to stderr once.
+See ``spada_native.cpp`` for what is implemented natively and why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import sys
 import threading
 from typing import Optional
 
@@ -17,79 +21,88 @@ import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "spada_native.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
-_SO = os.path.join(_BUILD_DIR, "libspada_native.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_build_failed = False
+_failed: Optional[str] = None
 
 
-def _build() -> bool:
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libspada_native-{digest}.so")
+
+
+def _build(so: str) -> Optional[str]:
+    """Compile into ``so``; returns an error message or None."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", _SO]
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except (subprocess.SubprocessError, FileNotFoundError):
-        return False
+    except FileNotFoundError:
+        return "g++ not found"
+    except subprocess.CalledProcessError as e:
+        return f"g++ failed: {e.stderr.decode(errors='replace')[-300:]}"
+    except subprocess.TimeoutExpired:
+        return "g++ timed out"
+    os.replace(tmp, so)
+    return None
+
+
+def _open(so: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(so)
+    lib.mtx_parse_body.restype = ctypes.c_int64
+    lib.mtx_parse_body.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.esc_plan.restype = ctypes.c_int
+    lib.esc_plan.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.traffic_simulate.restype = ctypes.c_int
+    lib.traffic_simulate.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
+    return lib
 
 
 def load() -> Optional[ctypes.CDLL]:
     """The native library, building it if needed; None if unavailable."""
-    global _lib, _build_failed
+    global _lib, _failed
     with _lock:
-        if _lib is not None or _build_failed:
+        if _lib is not None or _failed is not None:
             return _lib
-        if not os.path.exists(_SO) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-        ):
-            if not _build():
-                _build_failed = True
-                return None
-        try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
-            _build_failed = True
-            return None
-        lib.mtx_parse_body.restype = ctypes.c_int64
-        lib.mtx_parse_body.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.plan_tile_cache.restype = ctypes.c_int64
-        lib.plan_tile_cache.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32),
-        ]
-        lib.esc_plan.restype = ctypes.c_int
-        lib.esc_plan.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-        ]
-        lib.plan_panel_cache.restype = ctypes.c_int64
-        lib.plan_panel_cache.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-        ]
-        lib.traffic_simulate.restype = ctypes.c_int
-        lib.traffic_simulate.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-        ]
-        _lib = lib
+        so = _so_path()
+        err = None if os.path.exists(so) else _build(so)
+        if err is None:
+            try:
+                _lib = _open(so)
+            except (OSError, AttributeError):
+                # stale or foreign binary under this hash: rebuild once
+                err = _build(so)
+                if err is None:
+                    try:
+                        _lib = _open(so)
+                    except (OSError, AttributeError) as e:
+                        err = f"cannot load {so}: {e}"
+        if _lib is None:
+            _failed = err
+            print(f"spada_tpu.native: {err}; using the NumPy fallbacks",
+                  file=sys.stderr)
         return _lib
 
 
@@ -143,44 +156,6 @@ def traffic_simulate(a_indptr, a_indices, b_row_lens, row_order,
         _ptr(row_traffic, ctypes.c_int64), _ptr(row_fills, ctypes.c_int64),
     )
     return (out, row_traffic, row_fills) if rc == 0 else None
-
-
-def plan_tile_cache(tile_ids, n_slots: int, depth: int):
-    """Native Belady slot plan; returns (slot, load, n_loads) or None."""
-    lib = load()
-    if lib is None:
-        return None
-    ids = np.ascontiguousarray(tile_ids, dtype=np.int64)
-    slot = np.empty(len(ids), dtype=np.int32)
-    ld = np.empty(len(ids), dtype=np.int32)
-    n = lib.plan_tile_cache(
-        _ptr(ids, ctypes.c_int64), len(ids), n_slots, depth,
-        _ptr(slot, ctypes.c_int32), _ptr(ld, ctypes.c_int32),
-    )
-    if n < 0:
-        return None
-    return slot, ld, int(n)
-
-
-def plan_panel_cache(tile_ids, run_ptr, n_slots: int, depth: int,
-                     max_panel: int):
-    """Native panel-adjacency plan; returns (slot, load, n_loads) or None."""
-    lib = load()
-    if lib is None:
-        return None
-    ids = np.ascontiguousarray(tile_ids, dtype=np.int64)
-    ptr = np.ascontiguousarray(run_ptr, dtype=np.int64)
-    slot = np.empty(len(ids), dtype=np.int32)
-    ld = np.empty(len(ids), dtype=np.int32)
-    n = lib.plan_panel_cache(
-        _ptr(ids, ctypes.c_int64), len(ids),
-        _ptr(ptr, ctypes.c_int64), len(ptr) - 1,
-        n_slots, depth, max_panel,
-        _ptr(slot, ctypes.c_int32), _ptr(ld, ctypes.c_int32),
-    )
-    if n < 0:
-        return None
-    return slot, ld, int(n)
 
 
 def esc_plan(a_indptr, a_indices, b_indptr, b_indices, b_rows: int,

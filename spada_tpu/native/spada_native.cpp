@@ -13,6 +13,7 @@
 //     access (psum rows: their own address) — and reference-exact word
 //     counters, for the default full-K row-wise schedule (one psum per row;
 //     the windowed merge path stays in Python).
+//  3. esc_plan — the element path's symbolic phase (ops/element.py).
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this environment).
 
@@ -253,78 +254,7 @@ int traffic_simulate(const int64_t* a_indptr, const int32_t* a_indices,
 extern "C" {
 
 // ---------------------------------------------------------------------------
-// 3. Belady VMEM slot planner (ops/cacheplan.py, native for large worklists)
-// ---------------------------------------------------------------------------
-// Exact port of plan_tile_cache: victim = among slots with
-// last_use < w - depth, the one with the furthest next use (ties: lowest
-// slot index, matching np.argmax).  Returns n_loads, or -1 on deadlock.
-int64_t plan_tile_cache(const int64_t* tile_ids, int64_t W, int64_t n_slots,
-                        int64_t depth, int32_t* slot_out, int32_t* load_out) {
-    if (W == 0) return 0;
-    int64_t max_tile = 0;
-    for (int64_t w = 0; w < W; ++w)
-        if (tile_ids[w] > max_tile) max_tile = tile_ids[w];
-
-    const int64_t INF = INT64_MAX / 2;
-    std::vector<int64_t> nxt(W, INF);
-    {
-        std::vector<int64_t> last((size_t)max_tile + 1, -1);
-        for (int64_t w = W - 1; w >= 0; --w) {
-            int64_t t = tile_ids[w];
-            if (last[(size_t)t] >= 0) nxt[w] = last[(size_t)t];
-            last[(size_t)t] = w;
-        }
-    }
-
-    std::vector<int64_t> tile_slot((size_t)max_tile + 1, -1);
-    std::vector<int64_t> slot_tile(n_slots, -1);
-    std::vector<int64_t> slot_next(n_slots, -1);
-    std::vector<int64_t> slot_last(n_slots, INT64_MIN / 2);
-    int64_t n_free = n_slots;   // slots n_slots-n_free.. are taken in order
-    int64_t n_loads = 0;
-
-    for (int64_t w = 0; w < W; ++w) {
-        int64_t t = tile_ids[w];
-        int64_t s = tile_slot[(size_t)t];
-        if (s >= 0) {
-            slot_out[w] = (int32_t)s;
-            load_out[w] = 0;
-            slot_next[s] = nxt[w];
-            slot_last[s] = w;
-            continue;
-        }
-        if (n_free > 0) {
-            s = n_slots - n_free;   // matches python free-list pop order
-            --n_free;
-        } else {
-            int64_t best = -1, best_next = INT64_MIN;
-            for (int64_t c = 0; c < n_slots; ++c) {
-                if (slot_last[c] < w - depth && slot_next[c] > best_next) {
-                    best_next = slot_next[c];
-                    best = c;
-                }
-            }
-            if (best < 0) return -1;
-            s = best;
-            tile_slot[(size_t)slot_tile[s]] = -1;
-        }
-        tile_slot[(size_t)t] = s;
-        slot_tile[s] = t;
-        slot_next[s] = nxt[w];
-        slot_last[s] = w;
-        slot_out[w] = (int32_t)s;
-        load_out[w] = 1;
-        ++n_loads;
-    }
-    return n_loads;
-}
-
-}  // extern "C"
-
-extern "C" {
-
-// ---------------------------------------------------------------------------
-// 4. ESC plan builder (ops/element.py, native for large expansions)
+// 3. ESC plan builder (ops/element.py, native for large expansions)
 // ---------------------------------------------------------------------------
 // The element-granular symbolic phase: expand every scalar product
 // a[r,k]*b[k,j] (the reference scheduler's window expansion,
@@ -473,128 +403,6 @@ int esc_plan(const int64_t* a_indptr, const int32_t* a_indices, int64_t m,
     counts[4] = int64_t(1) << log_cap;
     counts[5] = E;
     return 0;
-}
-
-}  // extern "C"
-
-extern "C" {
-
-// ---------------------------------------------------------------------------
-// 5. Panel-adjacency slot planner (ops/panelplan.py, native for large W)
-// ---------------------------------------------------------------------------
-// Exact port of plan_panel_cache: greedy adjacency-preserving placement with
-// full-panel hits and cursor tail-extension; runs longer than max_panel are
-// placed per-item.  slot_prot carries the dot-time protection horizon (a
-// panel's slots are read at the run's last item).  Returns n_loads, or -1
-// on deadlock (same contract as the Python planner's RuntimeError).
-int64_t plan_panel_cache(const int64_t* tile_ids, int64_t W,
-                         const int64_t* run_ptr, int64_t n_runs,
-                         int64_t n_slots, int64_t depth, int64_t max_panel,
-                         int32_t* slot_out, int32_t* load_out) {
-    if (W == 0) return 0;
-    int64_t max_tile = 0;
-    for (int64_t w = 0; w < W; ++w)
-        if (tile_ids[w] > max_tile) max_tile = tile_ids[w];
-
-    std::vector<int64_t> tile_slot((size_t)max_tile + 1, -1);  // residency
-    std::vector<int64_t> slot_tile(n_slots, -1);
-    std::vector<int64_t> slot_prot(n_slots, INT64_MIN / 2);
-    int64_t cursor = 0;
-    int64_t n_loads = 0;
-    bool deadlock = false;
-
-    auto place = [&](int64_t w, int64_t t, int64_t s, int64_t protect,
-                     bool is_load) {
-        int64_t old = slot_tile[s];
-        if (is_load && old >= 0 && tile_slot[(size_t)old] == s)
-            tile_slot[(size_t)old] = -1;
-        tile_slot[(size_t)t] = s;
-        slot_tile[s] = t;
-        slot_out[w] = (int32_t)s;
-        slot_prot[s] = protect;
-        if (is_load) {
-            load_out[w] = 1;
-            ++n_loads;
-        } else {
-            load_out[w] = 0;
-        }
-    };
-
-    auto window_safe = [&](int64_t s0, int64_t n, int64_t w0) -> bool {
-        for (int64_t i = 0; i < n; ++i)
-            if (slot_prot[s0 + i] >= w0 + i - depth) return false;
-        return true;
-    };
-
-    auto alloc_fresh = [&](int64_t w0, const int64_t* tiles, int64_t L,
-                           int64_t protect) {
-        int64_t start = (cursor + L <= n_slots) ? cursor : 0;
-        int64_t first = start;
-        while (!window_safe(start, L, w0)) {
-            ++start;
-            if (start + L > n_slots) start = 0;
-            if (start == first) { deadlock = true; return; }
-        }
-        for (int64_t i = 0; i < L; ++i)
-            place(w0 + i, tiles[i], start + i, protect, true);
-        cursor = start + L;
-        if (cursor >= n_slots) cursor = 0;
-    };
-
-    for (int64_t r = 0; r < n_runs && !deadlock; ++r) {
-        int64_t rlo = run_ptr[r], rhi = run_ptr[r + 1];
-        // runs longer than max_panel are placed as aligned max_panel-sized
-        // chunks, each treated exactly like a short run (mirrors the
-        // Python planner chunk-for-chunk)
-        for (int64_t lo = rlo; lo < rhi && !deadlock; lo += max_panel) {
-            int64_t hi = std::min(lo + max_panel, rhi);
-            int64_t L = hi - lo;
-            const int64_t* tiles = &tile_ids[lo];
-            int64_t last = hi - 1;
-            // full-panel hit
-            int64_t s0 = tile_slot[(size_t)tiles[0]];
-            if (s0 >= 0 && s0 + L <= n_slots) {
-                bool all_res = true;
-                for (int64_t i = 1; i < L; ++i)
-                    if (tile_slot[(size_t)tiles[i]] != s0 + i) {
-                        all_res = false;
-                        break;
-                    }
-                if (all_res) {
-                    for (int64_t i = 0; i < L; ++i)
-                        place(lo + i, tiles[i], s0 + i, last, false);
-                    continue;
-                }
-            }
-            // tail extension: longest resident prefix ending at cursor
-            int64_t ext = 0;
-            int64_t pmax = std::min(L - 1, cursor);
-            for (int64_t p = pmax; p >= 1; --p) {
-                if (cursor + (L - p) > n_slots) continue;
-                bool pre = true;
-                for (int64_t i = 0; i < p; ++i)
-                    if (tile_slot[(size_t)tiles[i]] != cursor - p + i) {
-                        pre = false;
-                        break;
-                    }
-                if (pre && window_safe(cursor, L - p, lo + p)) {
-                    ext = p;
-                    break;
-                }
-            }
-            if (ext) {
-                for (int64_t i = 0; i < ext; ++i)
-                    place(lo + i, tiles[i], cursor - ext + i, last, false);
-                for (int64_t i = ext; i < L; ++i)
-                    place(lo + i, tiles[i], cursor + i - ext, last, true);
-                cursor += L - ext;
-                if (cursor >= n_slots) cursor = 0;
-                continue;
-            }
-            alloc_fresh(lo, tiles, L, last);
-        }
-    }
-    return deadlock ? -1 : n_loads;
 }
 
 }  // extern "C"

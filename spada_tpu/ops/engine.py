@@ -1,39 +1,21 @@
 """Numeric phase: the block-sparse tile-product engines.
 
-Five interchangeable engines compute C tiles from a :class:`WorkList`
-(fastest first on TPU; measured at n=64k banded, bf16 tiles):
+Two engines compute C tiles ``[n_c_tiles, tm, tn]`` (f32) from a
+:class:`~spada_tpu.ops.worklist.WorkList`:
 
-- :func:`run_worklist_panel` — one MXU dot per C-tile run over
-  k-concatenated VMEM panels placed by the adjacency-preserving planner
-  (:mod:`spada_tpu.ops.panelplan`); removes the cached kernel's per-item
-  f32 accumulate read-modify-write entirely (the MXU accumulates across
-  the contraction internally).  Built for short-run worklists (run length
-  <= max_panel); longer runs fall back to per-item dots.
-- :func:`run_worklist_cached` — the round-1 flagship TPU kernel (~3.4x the
-  XLA engine).  Grid step = ``ogroup`` consecutive C tiles (amortizing the
-  ~0.7us/step pipeline overhead); A/B tiles live in slot-addressed VMEM
-  caches whose Belady load/evict schedule is host-planned
-  (:mod:`spada_tpu.ops.cacheplan`) — the reference's fiber cache
-  (storage.rs:460-1007) with decisions moved to plan time, so reused tiles
-  cost zero HBM traffic and the device stays branch-light.
-- :func:`run_worklist_streaming` — same grouped-output structure, but A/B
-  tiles stream through an NBUF-slot ring of manual async DMAs maintained
-  *across* grid steps (never drains at run boundaries) — the reference's
-  stream-buffer + mem-latency hiding (simulator.rs:728-736,
-  storage.rs:737-818) without the cache.  Fallback when tile ids overflow
-  the cached kernel's packed encoding.
-- :func:`run_worklist_xla` — portable pure-XLA engine (gather + batched
-  matmul + scatter-add).  CPU default (tests / virtual meshes), k-major
-  (outer-product) schedules, the `precision='highest'` f32-exact oracle
-  path, and the differential oracle for the kernels.
-- :func:`run_worklist_pallas` — the auto-pipelined variant (one grid step
-  per work item), kept as a reference point: its data-dependent output index
-  map forces a per-step output flush that serializes the pipeline (~8x
-  slower).
+- :func:`run_worklist_triton` — a Pallas kernel on the Triton route.  The
+  grid is (C tile, tm/BM, tn/BN); each program reads its run of work items
+  from an int32 run pointer (the ``searchsorted`` of the o-sorted
+  ``o_tid``), loads the A and B sub-blocks of every item by tile id,
+  accumulates the products in registers with f32 accumulation, and stores
+  its C block once.  It needs a row-ordered (o-sorted) worklist.
+- :func:`run_worklist_xla` — gather + batched matmul + scatter-add in
+  chunks.  Order-independent, so it serves the k-major ``op`` schedule, and
+  ``precision='highest'``, where an f32 dot is true f32.
 
-In all engines the VMEM-resident f32 accumulation of an output run realizes
-the psum-buffer/sorting-network/merge-tree multiply-merge of the reference's
-PE pipeline (simulator.rs:117-235) as MXU matmul + add.
+In both, the register/accumulator sum over an output run realizes the
+psum-buffer/sorting-network/merge-tree multiply-merge of the reference's
+PE pipeline (simulator.rs:117-235) as tile matmul + add.
 """
 
 from __future__ import annotations
@@ -45,209 +27,80 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+ENGINES = ("auto", "xla", "triton")
 
 
-# v5e VMEM is 128 MiB; the default 16 MiB Mosaic scoped limit rejects
-# panel/cached configs whose working set is barely larger.
-_VMEM_LIMIT_BYTES = 100 * 1024 * 1024
+def select_engine(order: str = "row", precision: str = "default") -> str:
+    """Auto engine choice: the Triton-route kernel on a GPU for row-ordered,
+    non-HIGHEST worklists; XLA otherwise (k-major schedules need scatter
+    accumulation, HIGHEST wants XLA's true-f32 dot, and off the GPU the
+    kernel could only run interpreted)."""
+    from spada_tpu.platform import on_gpu
 
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def select_engine(order: str = "row", use_pallas: Optional[bool] = None) -> str:
-    """Auto engine choice: 'cached' | 'streaming' | 'xla' | 'pallas_grid'.
-
-    - TPU + row-major (o-sorted) worklist → the VMEM-cached kernel (fastest
-      measured; falls back to streaming for giant tile counts where the
-      packed id encoding overflows).  The panel-dot engine ('panel') is
-      explicit opt-in until its hardware numbers land.
-    - k-major (outer-product) schedules need scatter accumulation → XLA.
-    - CPU → XLA (the Pallas kernels run only interpreted there).
-    - ``use_pallas=True`` forces the legacy auto-pipelined megakernel.
-    """
-    if use_pallas:
-        return "pallas_grid"
-    if order == "row" and _on_tpu() and use_pallas is None:
-        return "cached"
+    if order == "row" and precision != "highest" and on_gpu():
+        return "triton"
     return "xla"
 
 
 def run_worklist(wl, a_tiles, b_tiles, precision: str = "highest",
-                 engine: Optional[str] = None):
-    """Dispatch a WorkList to the chosen (default: auto) engine.
-
-    Auto never pairs the streaming kernel with precision='highest': the
-    f32-exact (bf16x6) dot expansion inside the kernel's dynamic item loop
-    makes Mosaic compiles pathologically slow (>20min observed); XLA
-    compiles the same HIGHEST contraction in seconds.
-    """
-    eng = engine or select_engine(wl.order)
-    # HIGHEST is only runnable on the XLA engine on hardware: the f32-exact
-    # dot expansion inside the Pallas kernels' loops is the pathological
-    # Mosaic-compile case, so even explicit Pallas engine choices reroute
-    # (explicit choices still run interpreted off-TPU, e.g. in tests)
-    if eng in ("streaming", "cached", "panel") and precision == "highest" \
-            and (engine is None or _on_tpu()):
-        eng = "xla"
-    if eng in ("cached", "panel") and (
-        len(wl.a_tid) == 0
-        or max(int(np.max(wl.a_tid)), int(np.max(wl.b_tid))) >= (1 << 22)
-    ):
-        eng = "streaming" if len(wl.a_tid) else "xla"
-    if eng == "panel":
-        c, _, _, _ = run_worklist_panel(
+                 engine: Optional[str] = None, interpret: bool = False):
+    """Dispatch a WorkList to the chosen (default: auto) engine."""
+    eng = engine if engine not in (None, "auto") else select_engine(
+        wl.order, precision)
+    if eng == "triton":
+        if wl.order != "row":
+            raise ValueError("the triton engine needs a row-ordered worklist")
+        return run_worklist_triton(
             a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-            n_c_tiles=wl.n_c_tiles, precision=precision,
+            n_c_tiles=wl.n_c_tiles, precision=precision, interpret=interpret,
         )
-        return c
-    if eng == "streaming":
-        return run_worklist_streaming(
-            a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-            n_c_tiles=wl.n_c_tiles, precision=precision,
-        )
-    if eng == "cached":
-        c, _, _ = run_worklist_cached(
-            a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-            n_c_tiles=wl.n_c_tiles, precision=precision,
-        )
-        return c
-    if eng == "pallas_grid":
-        return run_worklist_pallas(
-            a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid, wl.first,
-            n_c_tiles=wl.n_c_tiles, precision=precision,
-        )
+    if eng != "xla":
+        raise ValueError(f"unknown engine {eng!r}; expected one of {ENGINES}")
     return run_worklist_xla(
         a_tiles, b_tiles, wl.a_tid, wl.b_tid, wl.o_tid,
         n_c_tiles=wl.n_c_tiles, precision=precision,
     )
 
 
-# --------------------------------------------------------------------------
-# Pallas megakernel
-# --------------------------------------------------------------------------
-
-def _make_spgemm_kernel(precision):
-    def _spgemm_kernel(a_ids_ref, b_ids_ref, o_ids_ref, first_ref,
-                       a_tile_ref, b_tile_ref, c_tile_ref):
-        """One tile product per grid step, accumulated in the VMEM output block.
-
-        The output BlockSpec maps consecutive steps with equal ``o_ids`` to the
-        same block, so ``c_tile_ref`` persists across a run; ``first`` marks run
-        starts where the accumulator must be zeroed.
-        """
-        w = pl.program_id(0)
-
-        @pl.when(first_ref[w] == 1)
-        def _zero():
-            c_tile_ref[...] = jnp.zeros_like(c_tile_ref)
-
-        c_tile_ref[...] += jax.lax.dot_general(
-            a_tile_ref[0],
-            b_tile_ref[0],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-
-    return _spgemm_kernel
-
-
 def _resolve_precision(name: str):
-    # 'highest': true f32 MXU products (bf16x3/x6 passes) — needed to hit
-    # scipy float32 tolerance with f32 tiles; 'default': fast bf16 MXU passes.
+    # 'highest': true f32 products; 'default': bf16 tiles as they are, f32
+    # tiles in TF32 on the GPU's tensor cores
     return {
         "highest": jax.lax.Precision.HIGHEST,
         "default": jax.lax.Precision.DEFAULT,
     }[name]
 
 
-@functools.partial(jax.jit, static_argnames=("n_c_tiles", "interpret", "precision"))
-def _run_pallas(a_ids, b_ids, o_ids, first, a_tiles, b_tiles,
-                n_c_tiles: int, interpret: bool = False,
-                precision: str = "highest"):
-    W = a_ids.shape[0]
-    tm = a_tiles.shape[1]
-    tk = a_tiles.shape[2]
-    tn = b_tiles.shape[2]
-    flops = 2 * W * tm * tk * tn
-    bytes_accessed = (
-        W * (tm * tk + tk * tn) * a_tiles.dtype.itemsize
-        + n_c_tiles * tm * tn * 4
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(W,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, tm, tk),
-                lambda w, a_ids, b_ids, o_ids, first: (a_ids[w], 0, 0),
-            ),
-            pl.BlockSpec(
-                (1, tk, tn),
-                lambda w, a_ids, b_ids, o_ids, first: (b_ids[w], 0, 0),
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tm, tn),
-            lambda w, a_ids, b_ids, o_ids, first: (o_ids[w], 0, 0),
-        ),
-    )
-    return pl.pallas_call(
-        _make_spgemm_kernel(_resolve_precision(precision)),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_c_tiles, tm, tn), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=_VMEM_LIMIT_BYTES,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops, bytes_accessed=bytes_accessed, transcendentals=0
-        ),
-        interpret=interpret,
-    )(a_ids, b_ids, o_ids, first, a_tiles, b_tiles)
-
-
-def run_worklist_pallas(a_tiles, b_tiles, a_ids, b_ids, o_ids, first,
-                        n_c_tiles: int, interpret: Optional[bool] = None,
-                        precision: str = "highest"):
-    """C tiles [n_c_tiles, tm, tn] (f32) from a row-major-ordered work list."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    return _run_pallas(
-        jnp.asarray(a_ids), jnp.asarray(b_ids), jnp.asarray(o_ids),
-        jnp.asarray(first), jnp.asarray(a_tiles), jnp.asarray(b_tiles),
-        n_c_tiles=n_c_tiles, interpret=bool(interpret), precision=precision,
-    )
-
-
 # --------------------------------------------------------------------------
 # Portable XLA engine
 # --------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("n_c_tiles", "chunk", "precision"))
-def _run_xla(a_ids, b_ids, o_ids, a_tiles, b_tiles, n_c_tiles: int,
-             chunk: int = 4096, precision: str = "highest"):
+def accumulate_xla(c, a_ids, b_ids, o_ids, a_tiles, b_tiles, chunk: int,
+                   precision):
+    """``c`` plus every work item's product, in chunks of gather ->
+    batched matmul -> scatter-add (chunks keep the partials bounded).
+    Traceable; shared by the single-device and the sharded engines."""
     W = a_ids.shape[0]
-    tm = a_tiles.shape[1]
-    tn = b_tiles.shape[2]
-    c = jnp.zeros((n_c_tiles, tm, tn), jnp.float32)
-    # chunked gather->batch-matmul->scatter-add keeps partials bounded
-    n_chunks = -(-W // chunk) if W else 0
-    for s in range(n_chunks):
+    for s in range(-(-W // chunk) if W else 0):
         sl = slice(s * chunk, min((s + 1) * chunk, W))
         part = jax.lax.dot_general(
             a_tiles[a_ids[sl]],
             b_tiles[b_ids[sl]],
             dimension_numbers=(((2,), (1,)), ((0,), (0,))),
             preferred_element_type=jnp.float32,
-            precision=_resolve_precision(precision),
+            precision=precision,
         )
         c = c.at[o_ids[sl]].add(part)
     return c
+
+
+@functools.partial(jax.jit, static_argnames=("n_c_tiles", "chunk", "precision"))
+def _run_xla(a_ids, b_ids, o_ids, a_tiles, b_tiles, n_c_tiles: int,
+             chunk: int = 4096, precision: str = "highest"):
+    c = jnp.zeros((n_c_tiles, a_tiles.shape[1], b_tiles.shape[2]),
+                  jnp.float32)
+    return accumulate_xla(c, a_ids, b_ids, o_ids, a_tiles, b_tiles, chunk,
+                          _resolve_precision(precision))
 
 
 def run_worklist_xla(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,
@@ -264,1169 +117,132 @@ def run_worklist_xla(a_tiles, b_tiles, a_ids, b_ids, o_ids, n_c_tiles: int,
 
 
 # --------------------------------------------------------------------------
-# Manually-pipelined Pallas streaming kernel
+# Run-accumulating tile kernel (Pallas, Triton route)
 # --------------------------------------------------------------------------
-#
-# Grid = one step per C tile (static output index map: the out block lives in
-# VMEM for exactly its run and is written back once).  A/B tiles stream
-# HBM->VMEM through an NBUF-slot ring of async DMAs that is maintained
-# ACROSS grid steps (scratch persists between sequential steps on TPU), so
-# the pipeline never drains at run boundaries — the TPU-native realization of
-# the reference's stream-buffer + fiber-cache overlap (simulator.rs:728-736,
-# storage.rs:737-818) with DMA depth standing in for `mem_latency` hiding.
 
-def _make_streaming_kernel_grouped(n_items: int, nbuf: int, ogroup: int,
-                                   precision):
-    # Grid step = OGROUP consecutive C tiles.  Grid-step overhead (~0.7us
-    # measured: pipeline bookkeeping + output writeback turnaround) dominated
-    # the 1-tile-per-step variant at ~4 items/tile; grouping amortizes it.
-    def kernel(item_ptr_ref, a_ids_ref, b_ids_ref, o_ids_ref,
-               a_hbm, b_hbm, c_ref, abuf, bbuf, sems):
-        g = pl.program_id(0)
-        lo = item_ptr_ref[g]
-        hi = item_ptr_ref[g + 1]
-        base = g * ogroup
+# Block sizes and launch parameters, chosen on an H100 (see PERF.md,
+# "Kernel decisions").  Each must be a power of two; pl.dot needs >= 16.
+BLOCK_M, BLOCK_N, BLOCK_K = 128, 128, 64
+NUM_WARPS, NUM_STAGES = 8, 3
+_MIN_DOT = 16
 
-        def dma_a(w, slot):
-            return pltpu.make_async_copy(
-                a_hbm.at[a_ids_ref[w]], abuf.at[slot], sems.at[slot, 0]
-            )
 
-        def dma_b(w, slot):
-            return pltpu.make_async_copy(
-                b_hbm.at[b_ids_ref[w]], bbuf.at[slot], sems.at[slot, 1]
-            )
+def _block(edge: int, pref: int) -> int:
+    """Largest power of two <= ``pref`` dividing ``edge`` (>= 16)."""
+    b = pref
+    while b > _MIN_DOT and edge % b:
+        b //= 2
+    return b
 
-        def start(w):
-            slot = jax.lax.rem(w, nbuf)
-            dma_a(w, slot).start()
-            dma_b(w, slot).start()
 
-        @pl.when(g == 0)
-        def _warmup():
-            for w in range(nbuf):
-                @pl.when(w < n_items)
-                def _():
-                    start(w)
+def _pad_to(x, axis: int, mult: int):
+    pad = (-x.shape[axis]) % mult
+    if not pad:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return jnp.pad(x, widths)
 
-        c_ref[...] = jnp.zeros_like(c_ref)
 
-        def body(w, _):
-            slot = jax.lax.rem(w, nbuf)
-            dma_a(w, slot).wait()
-            dma_b(w, slot).wait()
-            c_ref[o_ids_ref[w] - base] += jax.lax.dot_general(
-                abuf[slot], bbuf[slot],
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-            @pl.when(w + nbuf < n_items)
-            def _():
-                start(w + nbuf)
-            return 0
+def _tile_kernel(run_ptr_ref, a_ids_ref, b_ids_ref, a_ref, b_ref, c_ref, *,
+                 bm: int, bn: int, bk: int, nk: int, precision):
+    from jax.experimental import pallas as pl
 
-        jax.lax.fori_loop(lo, hi, body, 0, unroll=False)
+    t = pl.program_id(0)
+    rows = pl.ds(pl.program_id(1) * bm, bm)
+    cols = pl.ds(pl.program_id(2) * bn, bn)
+    lo = run_ptr_ref[t]
+    hi = run_ptr_ref[t + 1]
 
-    return kernel
+    # one flat loop over (item, k block) so the compiler pipelines loads
+    # across item boundaries as well as within an item
+    def step(s, acc):
+        # lax.div/rem: s >= 0, and jnp's floor-division sign fix-ups do not
+        # lower on the Triton route
+        w = lo + jax.lax.div(s, nk)
+        ks = pl.ds(jax.lax.rem(s, nk) * bk, bk)
+        a = a_ref[a_ids_ref[w], rows, ks]
+        b = b_ref[b_ids_ref[w], ks, cols]
+        return acc + pl.dot(a, b, precision=precision)
+
+    acc = jax.lax.fori_loop(0, (hi - lo) * nk, step,
+                            jnp.zeros((bm, bn), jnp.float32))
+    c_ref[...] = acc
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_c_tiles", "nbuf", "ogroup", "interpret", "precision"),
+    static_argnames=("n_c_tiles", "precision", "interpret", "bm", "bn", "bk",
+                     "num_warps", "num_stages"),
 )
-def _run_pallas_streaming_grouped(item_ptr, a_ids, b_ids, o_ids, a_tiles,
-                                  b_tiles, n_c_tiles: int, nbuf: int = 8,
-                                  ogroup: int = 8, interpret: bool = False,
-                                  precision: str = "default"):
-    W = a_ids.shape[0]
-    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
-    tn = b_tiles.shape[2]
-    n_groups = -(-n_c_tiles // ogroup)
-    itemsize = jnp.dtype(a_tiles.dtype).itemsize
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_groups,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (ogroup, tm, tn), lambda g, *prefetch: (g, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((nbuf, tm, tk), a_tiles.dtype),
-            pltpu.VMEM((nbuf, tk, tn), b_tiles.dtype),
-            pltpu.SemaphoreType.DMA((nbuf, 2)),
-        ],
-    )
-    out = pl.pallas_call(
-        _make_streaming_kernel_grouped(W, nbuf, ogroup,
-                                       _resolve_precision(precision)),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (n_groups * ogroup, tm, tn), jnp.float32
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=_VMEM_LIMIT_BYTES,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * W * tm * tk * tn,
-            bytes_accessed=W * (tm * tk + tk * tn) * itemsize
-            + n_c_tiles * tm * tn * 4,
-            transcendentals=0,
-        ),
+def _run_triton(run_ptr, a_ids, b_ids, a_tiles, b_tiles, n_c_tiles: int,
+                precision: str = "default", interpret: bool = False,
+                bm: int = BLOCK_M, bn: int = BLOCK_N, bk: int = BLOCK_K,
+                num_warps: int = NUM_WARPS, num_stages: int = NUM_STAGES):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    tm, tn = a_tiles.shape[1], b_tiles.shape[2]
+    # panel heights and tile edges that no block divides are zero-padded
+    # (exact: padded rows/cols of A and B contribute nothing)
+    bm = _block(max(tm, _MIN_DOT), bm)
+    bn = _block(max(tn, _MIN_DOT), bn)
+    bk = _block(max(a_tiles.shape[2], _MIN_DOT), bk)
+    a_p = _pad_to(_pad_to(a_tiles, 1, bm), 2, bk)
+    b_p = _pad_to(_pad_to(b_tiles, 1, bk), 2, bn)
+    tmp, tkp, tnp = a_p.shape[1], a_p.shape[2], b_p.shape[2]
+    kernel = functools.partial(
+        _tile_kernel, bm=bm, bn=bn, bk=bk, nk=tkp // bk,
+        precision=_resolve_precision(precision))
+    whole = pl.BlockSpec(memory_space=None)
+    c = pl.pallas_call(
+        kernel,
+        grid=(n_c_tiles, tmp // bm, tnp // bn),
+        in_specs=[whole] * 5,
+        out_specs=pl.BlockSpec((None, bm, bn), lambda t, i, j: (t, i, j)),
+        out_shape=jax.ShapeDtypeStruct((n_c_tiles, tmp, tnp), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
+        backend="triton",
         interpret=interpret,
-    )(item_ptr, a_ids, b_ids, o_ids, a_tiles, b_tiles)
-    # full [n_groups*ogroup, ...] — see _run_pallas_cached on why trimming
-    # must happen outside the jitted computation
-    return out
+        name="spada_tile_runs",
+    )(run_ptr, a_ids, b_ids, a_p, b_p)
+    if (tmp, tnp) != (tm, tn):
+        c = c[:, :tm, :tn]
+    return c
 
 
-def run_worklist_streaming(a_tiles, b_tiles, a_ids, b_ids, o_ids,
-                           n_c_tiles: int, nbuf: int = 8, ogroup: int = 8,
-                           interpret: Optional[bool] = None,
-                           precision: str = "default"):
-    """Streaming-kernel engine for a row-major (o-sorted) worklist.
+def run_pointer(o_ids, n_c_tiles: int) -> np.ndarray:
+    """int32 [n_c_tiles + 1]: items of C tile t are
+    ``[ptr[t], ptr[t + 1])`` of an o-sorted worklist."""
+    o = np.asarray(o_ids)
+    if len(o) > 1 and np.any(o[1:] < o[:-1]):
+        raise ValueError("run pointer needs an o-sorted (row-ordered) "
+                         "worklist")
+    return np.searchsorted(o, np.arange(n_c_tiles + 1)).astype(np.int32)
 
-    ``o_ids`` must be nondecreasing (build_worklist order='row' guarantees
-    it); items of each C tile are located via a CSR pointer built host-side.
+
+def run_worklist_triton(a_tiles, b_tiles, a_ids, b_ids, o_ids,
+                        n_c_tiles: int, precision: str = "default",
+                        interpret: bool = False, **blocks):
+    """Run-accumulating kernel engine for a row-ordered worklist.
+
+    Accumulation is f32.  bf16 tiles carry bf16 input rounding (relative
+    error of C about 2e-3 on the nn operands, limit 2e-2); f32 tiles at
+    ``precision='default'`` run their dots in TF32 on the GPU (10-bit
+    mantissa), held to the same 2e-2 limit — ``'highest'`` goes to XLA for
+    f32-exact results.  ``blocks`` may override ``bm``, ``bn``, ``bk``,
+    ``num_warps`` and ``num_stages``.  ``interpret=True`` runs the kernel
+    on the CPU (tests).
     """
-    if interpret is None:
-        interpret = not _on_tpu()
-    if len(a_ids) > _MAX_ITEMS_PER_LAUNCH:
-        outs = []
-        for o_lo, o_hi, w_lo, w_hi in _split_by_items(
-            o_ids, n_c_tiles, _MAX_ITEMS_PER_LAUNCH
-        ):
-            if w_hi - w_lo > _MAX_ITEMS_PER_LAUNCH:
-                # a single C tile's run exceeds the SMEM cap: compute it in
-                # chunked launches of partial tiles summed host-graph-side
-                # (the reference's psum merge_task, scheduler.rs:381-480)
-                acc = None
-                for c_lo in range(w_lo, w_hi, _MAX_ITEMS_PER_LAUNCH):
-                    c_hi = min(c_lo + _MAX_ITEMS_PER_LAUNCH, w_hi)
-                    part = run_worklist_streaming(
-                        a_tiles, b_tiles, a_ids[c_lo:c_hi], b_ids[c_lo:c_hi],
-                        np.zeros(c_hi - c_lo, np.int32), 1,
-                        nbuf=nbuf, ogroup=ogroup, interpret=interpret,
-                        precision=precision,
-                    )
-                    acc = part if acc is None else acc + part
-                outs.append(acc)
-                continue
-            outs.append(run_worklist_streaming(
-                a_tiles, b_tiles, a_ids[w_lo:w_hi], b_ids[w_lo:w_hi],
-                np.asarray(o_ids[w_lo:w_hi]) - o_lo, o_hi - o_lo,
-                nbuf=nbuf, ogroup=ogroup, interpret=interpret,
-                precision=precision,
-            ))
-        return jnp.concatenate(outs, axis=0)
-    o = np.asarray(o_ids)
-    n_groups = -(-n_c_tiles // ogroup)
-    item_ptr = np.searchsorted(
-        o, np.arange(n_groups + 1) * ogroup
-    ).astype(np.int32)
-    return _run_pallas_streaming_grouped(
-        jnp.asarray(item_ptr), jnp.asarray(a_ids), jnp.asarray(b_ids),
-        jnp.asarray(o_ids), jnp.asarray(a_tiles), jnp.asarray(b_tiles),
-        n_c_tiles=n_c_tiles, nbuf=nbuf, ogroup=ogroup,
-        interpret=bool(interpret), precision=precision,
-    )[:n_c_tiles]
-
-
-# --------------------------------------------------------------------------
-# VMEM-cached streaming kernel (host-planned fiber cache)
-# --------------------------------------------------------------------------
-#
-# Same grid/accumulator structure as the streaming kernel, but A/B tiles live
-# in slot-addressed VMEM caches whose load/evict schedule was precomputed by
-# spada_tpu.ops.cacheplan (Belady, the reference's priority-cache policy at
-# plan time).  Reused tiles cost zero HBM traffic — this is what pushes the
-# engine below the naive per-item streaming bound toward the unique-tile
-# minimum.
-
-def _make_cached_kernel(n_items: int, n_groups: int, depth: int, ogroup: int,
-                        precision, out_dtype=jnp.float32, nbuf: int = 2,
-                        uitems: int = 1, a_zslot: int = 0, b_zslot: int = 0):
-    # Grid step = OGROUP consecutive C tiles (amortizes the ~1.8us grid-step
-    # overhead); per-item scalar state packed into one int32 per operand
-    # (6 separate arrays overflow SMEM at large W):
-    #   packed = (tile_id << 9) | (slot << 1) | load
-    # The group runs one STATIC sub-loop per C tile, so the accumulate
-    # target `acc[j]` is compile-time fixed.  o_ids never enters the
-    # kernel: the tile-granular tile_ptr carries the whole output schedule.
-    #
-    # Output path (probe-driven design, tools/probe_kernel.py +
-    # tools/probe_manual.py on the v5e):
-    #   * NOT a windowed output block — the windowed path moved every 2MB
-    #     group window HBM->VMEM->HBM serially (copy-in of data the kernel
-    #     fully overwrites + unoverlapped copy-out = 1.7ms of 3.46ms).
-    #   * NO memset — a 2MB VMEM zero costs 2.9us/group (0.8ms total, 5x
-    #     the theoretical VPU rate).  Each C tile's FIRST item stores the
-    #     dot product; later items accumulate.  Real C tiles always have
-    #     >= 1 item, so only sliced-off padding tiles carry stale data.
-    #   * The group accumulates in one of NBUF rotating f32 buffers
-    #     (pl.when on g % nbuf keeps every ref compile-time static) and is
-    #     flushed with a manual async copy, reclaimed nbuf steps later.
-    #     f32 output DMAs straight from the accumulator; a narrower
-    #     out_dtype converts into a per-buffer stage first (bf16 C halves
-    #     the writeback bytes, which matters because VMEM->HBM DMA writes
-    #     cap at ~350 GB/s on this chip — measured, not nominal).
-    #
-    # Item pipelining: with uitems=U > 1 the worklist is plan-time padded so
-    # every run's length past the first item is a multiple of U (dummy items
-    # dot two reserved all-zero cache slots — numerically exact).  The inner
-    # loop body then executes U items STRAIGHT-LINE with no per-item guards,
-    # giving Mosaic a basic block where item i+1's scalar work (SMEM reads,
-    # slice addressing) schedules under item i's MXU op.  With U=1 the
-    # per-item dependence chain scalar->MXU->VPU serializes at ~470 ns/item
-    # against a 170 ns MXU floor (tools/probe_manual.py v2dots).
-    def kernel(tile_ptr_ref, a_pk_ref, b_pk_ref,
-               a_hbm, b_hbm, c_hbm, acache, bcache, asem, bsem, *obufs):
-        csem = obufs[-1]
-        accs = obufs[:nbuf]
-        stages = obufs[nbuf:-1]  # empty for f32 output
-        g = pl.program_id(0)
-        base = g * ogroup
-
-        def unpack(pk):
-            return pk >> 9, (pk >> 1) & 255, pk & 1
-
-        def start_loads(w):
-            a_tid, sa, a_ld = unpack(a_pk_ref[w])
-            b_tid, sb, b_ld = unpack(b_pk_ref[w])
-
-            @pl.when(a_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    a_hbm.at[a_tid], acache.at[sa], asem.at[sa]
-                ).start()
-
-            @pl.when(b_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    b_hbm.at[b_tid], bcache.at[sb], bsem.at[sb]
-                ).start()
-
-        @pl.when(g == 0)
-        def _warmup():
-            if uitems > 1:
-                # dummy padding items dot these two reserved slots
-                acache[a_zslot] = jnp.zeros_like(acache[a_zslot])
-                bcache[b_zslot] = jnp.zeros_like(bcache[b_zslot])
-            for w in range(depth):
-                @pl.when(w < n_items)
-                def _():
-                    start_loads(w)
-
-        def prep_item(w):
-            """Prefetch + waits for item w; returns its cache slots."""
-            @pl.when(w + depth < n_items)
-            def _():
-                start_loads(w + depth)
-            a_tid, sa, a_ld = unpack(a_pk_ref[w])
-            b_tid, sb, b_ld = unpack(b_pk_ref[w])
-
-            @pl.when(a_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    a_hbm.at[a_tid], acache.at[sa], asem.at[sa]
-                ).wait()
-
-            @pl.when(b_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    b_hbm.at[b_tid], bcache.at[sb], bsem.at[sb]
-                ).wait()
-
-            return sa, sb
-
-        def dot_slots(sa, sb):
-            return jax.lax.dot_general(
-                acache[sa], bcache[sb],
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
-        def do_item(w, j, acc, store):
-            sa, sb = prep_item(w)
-            d = dot_slots(sa, sb)
-            if store:
-                acc[j] = d
-            else:
-                acc[j] += d
-
-        def group(acc, stage, sem):
-            src = stage if stage is not None else acc
-            # reclaim this buffer: wait its copy-out from nbuf steps ago
-            @pl.when(g >= nbuf)
-            def _():
-                pltpu.make_async_copy(
-                    src, c_hbm.at[pl.ds((g - nbuf) * ogroup, ogroup)], sem
-                ).wait()
-            lg = max(uitems - 1, 0).bit_length()  # log2(uitems)
-            for j in range(ogroup):
-                lo = tile_ptr_ref[base + j]
-                hi = tile_ptr_ref[base + j + 1]
-
-                @pl.when(hi > lo)
-                def _(lo=lo, j=j):
-                    do_item(lo, j, acc, store=True)
-
-                # empty runs (lo == hi) must emit a true zero tile: the
-                # distributed per-round launches (parallel/halo.py) have
-                # INTERIOR zero-item tiles whose output is summed, not
-                # sliced off.  Dense single-chip schedules never take this
-                # branch (every real C tile has >= 1 item), so the
-                # flagship path pays only the predicate.
-                @pl.when(hi == lo)
-                def _(j=j):
-                    acc[j] = jnp.zeros_like(acc[j])
-
-                if uitems <= 1:
-                    def body(w, _, j=j):
-                        do_item(w, j, acc, store=False)
-                        return 0
-
-                    jax.lax.fori_loop(lo + 1, hi, body, 0, unroll=False)
-                else:
-                    # the tail past the first item is plan-time padded to a
-                    # multiple of uitems: U items run guard-free — waits
-                    # first, then the U independent MXU ops whose results
-                    # reduce once into acc[j]
-                    def body(p, _, j=j, lo=lo):
-                        w0 = lo + 1 + (p << lg)
-                        slots = [prep_item(w0 + u) for u in range(uitems)]
-                        d = dot_slots(*slots[0])
-                        for u in range(1, uitems):
-                            d += dot_slots(*slots[u])
-                        acc[j] += d
-                        return 0
-
-                    jax.lax.fori_loop(
-                        0, (hi - lo - 1) >> lg, body, 0, unroll=False
-                    )
-            if stage is not None:
-                stage[...] = acc[...].astype(out_dtype)
-            pltpu.make_async_copy(
-                src, c_hbm.at[pl.ds(base, ogroup)], sem
-            ).start()
-
-        for pp in range(nbuf):
-            @pl.when(g % nbuf == pp)
-            def _(pp=pp):
-                group(accs[pp], stages[pp] if stages else None,
-                      csem.at[pp])
-
-        @pl.when(g == n_groups - 1)
-        def _drain():
-            # copies issued at steps g, g-1, ..., g-nbuf+1 have no later
-            # step to reclaim them
-            for pp in range(nbuf):
-                @pl.when(g % nbuf == pp)
-                def _(pp=pp):
-                    for back in range(nbuf):
-                        bi = (pp - back) % nbuf
-                        src = stages[bi] if stages else accs[bi]
-
-                        @pl.when(g - back >= 0)
-                        def _(back=back, bi=bi, src=src):
-                            pltpu.make_async_copy(
-                                src,
-                                c_hbm.at[pl.ds((g - back) * ogroup,
-                                               ogroup)],
-                                csem.at[bi],
-                            ).wait()
-
-    return kernel
-
-
-def _pad_worklist(o_ids, a_packed, b_packed, n_c_tiles: int, uitems: int,
-                  a_zslot: int, b_zslot: int):
-    """Pad each o-run's tail (past the first item) to a multiple of
-    ``uitems`` with dummy items that dot the reserved all-zero cache slots
-    (numerically exact: 0 @ 0 accumulates 0).  Returns the padded per-tile
-    item pointer [n_c_tiles + 1] and the padded packed plan arrays."""
-    o = np.asarray(o_ids, dtype=np.int64)
-    counts = np.bincount(o, minlength=n_c_tiles).astype(np.int64)
-    tail = np.maximum(counts - 1, 0)
-    new_counts = counts + (-tail) % uitems
-    old_ptr = np.zeros(n_c_tiles + 1, np.int64)
-    old_ptr[1:] = np.cumsum(counts)
-    new_ptr = np.zeros(n_c_tiles + 1, np.int64)
-    new_ptr[1:] = np.cumsum(new_counts)
-    apk = np.full(int(new_ptr[-1]), np.int32(a_zslot << 1), np.int32)
-    bpk = np.full(int(new_ptr[-1]), np.int32(b_zslot << 1), np.int32)
-    pos = (np.arange(len(o)) - np.repeat(old_ptr[:-1], counts)
-           + np.repeat(new_ptr[:-1], counts))
-    apk[pos] = a_packed
-    bpk[pos] = b_packed
-    return new_ptr, apk, bpk
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_c_tiles", "a_slots", "b_slots", "depth", "ogroup",
-                     "interpret", "precision", "out_dtype", "nbuf",
-                     "uitems"),
-)
-def _run_pallas_cached(tile_ptr, a_packed, b_packed, a_tiles, b_tiles,
-                       n_c_tiles: int, a_slots: int, b_slots: int,
-                       depth: int = 8, ogroup: int = 8,
-                       interpret: bool = False, precision: str = "default",
-                       out_dtype=jnp.float32, nbuf: int = 2,
-                       uitems: int = 1):
-    """``tile_ptr``: int32 [n_groups*ogroup + 1] CSR pointer of each C
-    tile's item range in the o-sorted worklist (padded tiles: lo == hi).
-    With ``uitems`` > 1 the caller must have padded the worklist with
-    :func:`_pad_worklist` (zero slots = index a_slots / b_slots).
-
-    Returns the FULL [n_groups*ogroup, tm, tn] output — including the
-    group-padding tiles past ``n_c_tiles``, which are exact zeros (the
-    lo == hi branch).  Callers that need exactly ``n_c_tiles`` tiles must
-    slice OUTSIDE any timed/merged device computation: an in-jit
-    ``out[:n_c_tiles]`` with ``n_c_tiles % ogroup != 0`` materializes a
-    full copy of C (round-5 root cause of the "densified-offset T=512
-    anomaly" — a ~332 MB r/w phantom pass, 1.0 ms of a 2.8 ms entry —
-    and of the apparent 2x shard_map overhead; tools/probe_r5b.py)."""
-    assert uitems & (uitems - 1) == 0, "uitems must be a power of two"
-    W = a_packed.shape[0]
-    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
-    tn = b_tiles.shape[2]
-    n_groups = -(-n_c_tiles // ogroup)
-    out_dtype = jnp.dtype(out_dtype)
-    xtra = 1 if uitems > 1 else 0  # reserved zero slot per cache
-    scratch = [
-        pltpu.VMEM((a_slots + xtra, tm, tk), a_tiles.dtype),
-        pltpu.VMEM((b_slots + xtra, tk, tn), b_tiles.dtype),
-        pltpu.SemaphoreType.DMA((a_slots,)),
-        pltpu.SemaphoreType.DMA((b_slots,)),
-    ]
-    # nbuf rotating group accumulators (+ narrow stages for non-f32 out)
-    scratch += [pltpu.VMEM((ogroup, tm, tn), jnp.float32)
-                for _ in range(nbuf)]
-    if out_dtype != jnp.float32:
-        scratch += [pltpu.VMEM((ogroup, tm, tn), out_dtype)
-                    for _ in range(nbuf)]
-    scratch.append(pltpu.SemaphoreType.DMA((nbuf,)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_groups,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=scratch,
-    )
-    itemsize = jnp.dtype(a_tiles.dtype).itemsize
-    out = pl.pallas_call(
-        _make_cached_kernel(W, n_groups, depth, ogroup,
-                            _resolve_precision(precision),
-                            out_dtype=out_dtype, nbuf=nbuf, uitems=uitems,
-                            a_zslot=a_slots, b_zslot=b_slots),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (n_groups * ogroup, tm, tn), out_dtype
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=_VMEM_LIMIT_BYTES,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * W * tm * tk * tn,
-            bytes_accessed=W * (tm * tk + tk * tn) * itemsize
-            + n_c_tiles * tm * tn * out_dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        name="spada_cached",
-    )(tile_ptr, a_packed, b_packed, a_tiles, b_tiles)
-    return out
-
-
-def _pack_plan(ids, plan) -> np.ndarray:
-    ids = np.asarray(ids, dtype=np.int64)
-    assert ids.max(initial=0) < (1 << 22), "tile id overflows packed int32"
-    # the kernel unpacks the slot as (pk >> 1) & 255: more than 256 slots
-    # would silently alias and corrupt results
-    assert plan.slot.max(initial=0) < 256, "slot id overflows packed int32"
-    pk = (ids << 9) | (plan.slot.astype(np.int64) << 1) | plan.load
-    return pk.astype(np.int32)
-
-
-# scalar-prefetch operands live in SMEM (~1 MiB total): with up to three
-# W-sized int32 arrays (o_ids + packed A/B state) the practical cap is
-# ~80k items per launch
-_MAX_ITEMS_PER_LAUNCH = 70_000
-
-
-# per-tile-edge swept slot optima for the cached kernel
-# (a_slots, b_slots, depth, ogroup): T=512 wants ogroup=2 (1 MB f32
-# accumulator per group member; og>=4 measured collapsing to 2.8 ms on
-# VMEM pressure), T<=256 deeper caches (tools/sweep_cached.py,
-# BENCH_NOTES round-4/5 sweeps).  bench.py and the distributed paths
-# share this table so a shard never launches an unswept configuration.
-CACHED_SLOTS_BY_T = {128: (12, 24, 8, 8), 256: (12, 24, 8, 8),
-                     384: (6, 10, 4, 6), 512: (6, 10, 4, 2)}
-
-
-def default_cached_slots(tm: int, tk: int, tn: int):
-    """Swept (a_slots, b_slots, depth, ogroup) for the nearest tile edge."""
-    t = max(tm, tk, tn)
-    k = min(CACHED_SLOTS_BY_T, key=lambda x: abs(x - t))
-    return CACHED_SLOTS_BY_T[k]
-
-
-def fit_cached_config(tm: int, tk: int, tn: int, itemsize: int,
-                      a_slots: int, b_slots: int, depth: int, ogroup: int,
-                      uitems: int = 1):
-    """Clamp a cached-kernel slot config into the VMEM/packing budget.
-
-    Shared by :func:`run_worklist_cached` and the distributed cached paths
-    (parallel/spgemm.py, parallel/halo.py) so a shard can never launch a
-    configuration the single-chip wrapper would have shrunk.  This is a
-    SAFETY clamp against Mosaic compile failure, not an optimizer — the
-    swept per-edge optima live in :data:`CACHED_SLOTS_BY_T`.  The 48 MiB
-    working budget reflects what the chip demonstrably sustains (the
-    nn config's ~28 MB measured fast; the Mosaic vmem_limit is 100 MiB).
-    Fit order: (1) the packed int32 plan carries 8 slot bits (256 slots;
-    one reserved when item pairing is on); (2) halve ogroup until the
-    nbuf=2 f32 accumulators take at most half the budget; (3) shrink
-    depth if even the minimum slot rings cannot fit; (4) shrink slot
-    counts proportionally."""
-    cap = 255 if uitems > 1 else 256
-    a_slots = min(a_slots, cap)
-    b_slots = min(b_slots, cap)
-    total = 48 * 1024 * 1024
-    while ogroup > 1 and 2 * ogroup * tm * tn * 4 > total // 2:
-        ogroup //= 2
-    budget = total - 2 * ogroup * tm * tn * 4
-    slot_pair = (tm * tk + tk * tn) * itemsize
-    max_depth = budget // slot_pair - 2
-    depth = max(1, min(depth, int(max_depth)))
-    a_slots = max(a_slots, depth + 2)
-    b_slots = max(b_slots, depth + 2)
-    need = (a_slots * tm * tk + b_slots * tk * tn) * itemsize
-    if need > budget:
-        scale = budget / need
-        a_slots = max(depth + 2, int(a_slots * scale))
-        b_slots = max(depth + 2, int(b_slots * scale))
-    return a_slots, b_slots, depth, ogroup
-
-
-def _split_by_items(o_ids, n_c_tiles: int, max_items: int):
-    """Slab boundaries [(o_lo, o_hi, w_lo, w_hi)] at C-tile granularity."""
-    o = np.asarray(o_ids)
-    slabs = []
-    o_lo = 0
-    w_lo = 0
-    while o_lo < n_c_tiles:
-        w_cap = min(w_lo + max_items, len(o))
-        if w_cap == len(o):
-            o_hi = n_c_tiles
-        else:
-            o_hi = max(int(o[w_cap - 1]), o_lo + 1)  # last complete tile
-        w_hi = int(np.searchsorted(o, o_hi))
-        if w_hi == w_lo:  # one tile exceeds the cap (can't split a run)
-            o_hi = o_lo + 1
-            w_hi = int(np.searchsorted(o, o_hi))
-        slabs.append((o_lo, o_hi, w_lo, w_hi))
-        o_lo, w_lo = o_hi, w_hi
-    return slabs
-
-
-def run_worklist_cached(a_tiles, b_tiles, a_ids, b_ids, o_ids,
-                        n_c_tiles: int, a_slots: Optional[int] = None,
-                        b_slots: Optional[int] = None,
-                        depth: Optional[int] = None,
-                        ogroup: Optional[int] = None,
-                        interpret: Optional[bool] = None,
-                        precision: str = "default", uitems: int = 1):
-    """VMEM-cached engine; returns (c_tiles, a_plan, b_plan).
-
-    Unset slot parameters default per tile edge from the swept optima
-    (:data:`CACHED_SLOTS_BY_T` — e.g. T=512 needs ogroup=2; larger groups
-    measured collapsing on VMEM pressure); explicit values are honored
-    and only clamped by :func:`fit_cached_config`."""
-    from spada_tpu.ops.cacheplan import CachePlan, plan_tile_cache
-
-    d_a, d_b, d_depth, d_og = default_cached_slots(
-        a_tiles.shape[1], a_tiles.shape[2], b_tiles.shape[2])
-    a_slots = d_a if a_slots is None else a_slots
-    b_slots = d_b if b_slots is None else b_slots
-    depth = d_depth if depth is None else depth
-    ogroup = d_og if ogroup is None else ogroup
-    if interpret is None:
-        interpret = not _on_tpu()
-    if len(a_ids) == 0 or n_c_tiles == 0:
+    if n_c_tiles == 0 or len(a_ids) == 0:
         tm, tn = a_tiles.shape[1], b_tiles.shape[2]
-        empty = CachePlan(np.zeros(0, np.int32), np.zeros(0, np.int32),
-                          a_slots, 0)
-        return jnp.zeros((n_c_tiles, tm, tn), jnp.float32), empty, empty
-    if len(a_ids) > _MAX_ITEMS_PER_LAUNCH:
-        # split into o-slab launches (SMEM prefetch cap); plans are
-        # per-slab, so each launch re-warms its cache (cold loads only at
-        # slab boundaries)
-        outs, a_plans, b_plans = [], [], []
-        for o_lo, o_hi, w_lo, w_hi in _split_by_items(
-            o_ids, n_c_tiles, _MAX_ITEMS_PER_LAUNCH
-        ):
-            if w_hi - w_lo > _MAX_ITEMS_PER_LAUNCH:
-                # a single C tile's run exceeds the SMEM cap: chunked
-                # partial-tile launches summed host-graph-side
-                acc = None
-                for c_lo in range(w_lo, w_hi, _MAX_ITEMS_PER_LAUNCH):
-                    c_hi = min(c_lo + _MAX_ITEMS_PER_LAUNCH, w_hi)
-                    c, ap, bp = run_worklist_cached(
-                        a_tiles, b_tiles, a_ids[c_lo:c_hi], b_ids[c_lo:c_hi],
-                        np.zeros(c_hi - c_lo, np.int32), 1,
-                        a_slots=a_slots, b_slots=b_slots, depth=depth,
-                        ogroup=ogroup, interpret=interpret,
-                        precision=precision, uitems=uitems,
-                    )
-                    acc = c if acc is None else acc + c
-                    a_plans.append(ap)
-                    b_plans.append(bp)
-                outs.append(acc)
-                continue
-            c, ap, bp = run_worklist_cached(
-                a_tiles, b_tiles, a_ids[w_lo:w_hi], b_ids[w_lo:w_hi],
-                np.asarray(o_ids[w_lo:w_hi]) - o_lo, o_hi - o_lo,
-                a_slots=a_slots, b_slots=b_slots, depth=depth,
-                ogroup=ogroup, interpret=interpret, precision=precision,
-                uitems=uitems,
-            )
-            outs.append(c)
-            a_plans.append(ap)
-            b_plans.append(bp)
-        from spada_tpu.ops.cacheplan import CachePlan
-
-        # per-item slot/load arrays concatenate across slabs (items keep
-        # their order), so the aggregate is a faithful whole-run plan view
-        agg_a = CachePlan(
-            np.concatenate([p.slot for p in a_plans]),
-            np.concatenate([p.load for p in a_plans]),
-            a_slots, sum(p.n_loads for p in a_plans))
-        agg_b = CachePlan(
-            np.concatenate([p.slot for p in b_plans]),
-            np.concatenate([p.load for p in b_plans]),
-            b_slots, sum(p.n_loads for p in b_plans))
-        return jnp.concatenate(outs, axis=0), agg_a, agg_b
-    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
-    tn = b_tiles.shape[2]
-    isz = np.dtype(a_tiles.dtype).itemsize
-    a_slots, b_slots, depth, ogroup = fit_cached_config(
-        tm, tk, tn, isz, a_slots, b_slots, depth, ogroup, uitems=uitems)
-    o = np.asarray(o_ids)
-    n_groups = -(-n_c_tiles // ogroup)
-    # with item pairing, a U-block's prefetches are all issued before the
-    # block's dots read their slots — widen the plan's no-reuse margin so a
-    # load can never overwrite a slot still unread within the block
-    plan_depth = depth + (uitems - 1 if uitems > 1 else 0)
-    a_plan = plan_tile_cache(a_ids, a_slots, plan_depth)
-    b_plan = plan_tile_cache(b_ids, b_slots, plan_depth)
-    apk = _pack_plan(a_ids, a_plan)
-    bpk = _pack_plan(b_ids, b_plan)
-    if uitems > 1:
-        tile_ptr_t, apk, bpk = _pad_worklist(
-            o, apk, bpk, n_c_tiles, uitems, a_slots, b_slots)
-        tile_ptr = np.full(n_groups * ogroup + 1, tile_ptr_t[-1], np.int32)
-        tile_ptr[: n_c_tiles + 1] = tile_ptr_t
-    else:
-        tile_ptr = np.searchsorted(
-            o, np.arange(n_groups * ogroup + 1)
-        ).astype(np.int32)
-    c = _run_pallas_cached(
-        jnp.asarray(tile_ptr), jnp.asarray(apk), jnp.asarray(bpk),
+        return jnp.zeros((max(n_c_tiles, 0), tm, tn), jnp.float32)
+    return _run_triton(
+        jnp.asarray(run_pointer(o_ids, n_c_tiles)),
+        jnp.asarray(np.asarray(a_ids, np.int32)),
+        jnp.asarray(np.asarray(b_ids, np.int32)),
         jnp.asarray(a_tiles), jnp.asarray(b_tiles),
-        n_c_tiles=n_c_tiles, a_slots=a_slots, b_slots=b_slots, depth=depth,
-        ogroup=ogroup, interpret=bool(interpret), precision=precision,
-        uitems=uitems,
+        n_c_tiles=n_c_tiles, precision=precision, interpret=interpret,
+        **blocks,
     )
-    # trim group padding OUTSIDE the jitted kernel (an in-jit slice copies
-    # all of C when n_c_tiles % ogroup != 0 — see _run_pallas_cached); the
-    # lazy slice executes with the readback/extraction, off the hot path
-    return c[:n_c_tiles], a_plan, b_plan
-
-
-# --------------------------------------------------------------------------
-# Panel-dot kernel (k-concatenated runs, one MXU dot per C tile)
-# --------------------------------------------------------------------------
-#
-# The cached kernel's per-item `acc[j] += dot` chain serializes at ~2.8x the
-# MXU floor on run-structured worklists: every item past a run's first pays
-# a f32 VMEM read-modify-write of the whole C tile plus a scalar->MXU->VPU
-# dependence chain.  This engine removes the accumulate entirely: the
-# adjacency-preserving planner (spada_tpu.ops.panelplan) places each run's
-# A and B tiles in CONSECUTIVE cache slots, the caches are shaped 2-D with
-# k as the major axis, and a C tile's whole run becomes ONE
-# `dot_general` over (L*tk)-row panels with the MXU accumulating internally
-# across the contraction — the reference's multiply-merge pipeline
-# (simulator.rs:117-235) collapsed into a single wide MXU pass per output.
-#
-# Layout: A tiles are stored k-transposed, (n_a, tk, tm), so the A cache
-# (a_slots*tk, tm) concatenates a run's tiles along rows; the panel dot is
-# the lhs-contracting-dim-0 form
-#   C = A_panel^T @ B_panel,  A_panel (L*tk, tm), B_panel (L*tk, tn),
-# which Mosaic lowers to tpu.matmul with transposed-lhs dimension numbers.
-# Run lengths are specialized per static branch (L = 1..max_panel); longer
-# runs fall back to per-item transposed dots with accumulate (the planner
-# plans them per-item, so slots need not be adjacent).
-
-def _make_panel_kernel(n_items: int, n_groups: int, depth: int, ogroup: int,
-                       tk: int, max_panel: int, precision,
-                       out_dtype=jnp.float32, nbuf: int = 2,
-                       xpose: bool = False, short_lens=None,
-                       rem_lens=None, has_long: bool = True,
-                       a_major: bool = False, cache3d: bool = False):
-    # static branch pruning: only the run/chunk lengths that actually occur
-    # in the plan get emitted (smaller Mosaic programs, faster interpret)
-    if short_lens is None:
-        short_lens = tuple(range(1, max_panel + 1))
-    if rem_lens is None:
-        rem_lens = tuple(range(1, max_panel))
-    def kernel(tile_ptr_ref, a_pk_ref, b_pk_ref,
-               a_hbm, b_hbm, c_hbm, acache, bcache, asem, bsem, *obufs):
-        csem = obufs[-1]
-        accs = obufs[:nbuf]
-        stages = obufs[nbuf:-1]  # empty for f32 output
-        g = pl.program_id(0)
-        base = g * ogroup
-
-        def unpack(pk):
-            return pk >> 9, (pk >> 1) & 255, pk & 1
-
-        def a_dst(sa):
-            # 3-D: one slot = one leading index (untiled dim — cheap);
-            # m-major: tiles concatenate along lanes, natural (tm, tk) form;
-            # k-major: along sublanes, k-transposed (tk, tm) form
-            if cache3d:
-                return acache.at[sa]
-            if a_major:
-                return acache.at[:, pl.ds(sa * tk, tk)]
-            return acache.at[pl.ds(sa * tk, tk)]
-
-        def b_dst(sb):
-            if cache3d:
-                return bcache.at[sb]
-            return bcache.at[pl.ds(sb * tk, tk)]
-
-        def start_loads(w):
-            a_tid, sa, a_ld = unpack(a_pk_ref[w])
-            b_tid, sb, b_ld = unpack(b_pk_ref[w])
-
-            @pl.when(a_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    a_hbm.at[a_tid], a_dst(sa),
-                    asem.at[sa],
-                ).start()
-
-            @pl.when(b_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    b_hbm.at[b_tid], b_dst(sb),
-                    bsem.at[sb],
-                ).start()
-
-        @pl.when(g == 0)
-        def _warmup():
-            for w in range(depth):
-                @pl.when(w < n_items)
-                def _():
-                    start_loads(w)
-
-        def prep_item(w):
-            """Prefetch item w+depth, wait item w's loads."""
-            @pl.when(w + depth < n_items)
-            def _():
-                start_loads(w + depth)
-            a_tid, sa, a_ld = unpack(a_pk_ref[w])
-            b_tid, sb, b_ld = unpack(b_pk_ref[w])
-
-            @pl.when(a_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    a_hbm.at[a_tid], a_dst(sa),
-                    asem.at[sa],
-                ).wait()
-
-            @pl.when(b_ld == 1)
-            def _():
-                pltpu.make_async_copy(
-                    b_hbm.at[b_tid], b_dst(sb),
-                    bsem.at[sb],
-                ).wait()
-
-            return sa, sb
-
-        def panel_dot_3d(sa0, sb0, L):
-            # dynamic START, static LENGTH slice on the untiled leading dim,
-            # then a row-major-identity collapse (L, tk, x) -> (L*tk, x):
-            # no dynamic-offset slicing on tiled dims anywhere
-            if L == 1:
-                ap, bp = acache[sa0], bcache[sb0]
-            else:
-                ap = acache[pl.ds(sa0, L)].reshape(L * tk, acache.shape[2])
-                bp = bcache[pl.ds(sb0, L)].reshape(L * tk, bcache.shape[2])
-            return jax.lax.dot_general(
-                ap, bp,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
-        def panel_dot(sa0, sb0, L):
-            if cache3d:
-                return panel_dot_3d(sa0, sb0, L)
-            # slot starts are multiples of tk by construction (slot s ->
-            # offset s*tk); the pl.multiple_of hint lets Mosaic prove the
-            # dynamic slice is tile-aligned instead of emitting a VPU
-            # relayout copy per operand (the round-2 3x loss)
-            sa_ofs = pl.multiple_of(sa0 * tk, tk)
-            sb_ofs = pl.multiple_of(sb0 * tk, tk)
-            if a_major:
-                # natural (m, k) x (k, n): the MXU's canonical contraction —
-                # no transposed-lhs lowering (measured 3x slower on v5e)
-                return jax.lax.dot_general(
-                    acache[:, pl.ds(sa_ofs, L * tk)],
-                    bcache[pl.ds(sb_ofs, L * tk)],
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=precision,
-                )
-            x = acache[pl.ds(sa_ofs, L * tk)]
-            if xpose:
-                # explicit relayout before a canonical (1,0)-contraction —
-                # kept as an A/B switch in case Mosaic's transposed-lhs
-                # matmul path lowers poorly on some toolchains
-                return jax.lax.dot_general(
-                    x.T, bcache[pl.ds(sb_ofs, L * tk)],
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=precision,
-                )
-            return jax.lax.dot_general(
-                x, bcache[pl.ds(sb_ofs, L * tk)],
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=precision,
-            )
-
-        def group(acc, stage, sem):
-            src = stage if stage is not None else acc
-            # reclaim this buffer: wait its copy-out from nbuf steps ago
-            @pl.when(g >= nbuf)
-            def _():
-                pltpu.make_async_copy(
-                    src, c_hbm.at[pl.ds((g - nbuf) * ogroup, ogroup)], sem
-                ).wait()
-            for j in range(ogroup):
-                lo = tile_ptr_ref[base + j]
-                hi = tile_ptr_ref[base + j + 1]
-                L = hi - lo
-
-                # length-specialized branches: statically-unrolled prefetch
-                # + waits for the run, then ONE panel dot of exactly L tiles
-                for Lb in short_lens:
-                    @pl.when(L == Lb)
-                    def _(lo=lo, Lb=Lb, j=j):
-                        for i in range(Lb):
-                            prep_item(lo + i)
-                        sa0 = (a_pk_ref[lo] >> 1) & 255
-                        sb0 = (b_pk_ref[lo] >> 1) & 255
-                        acc[j] = panel_dot(sa0, sb0, Lb)
-
-                if not has_long:
-                    continue
-
-                @pl.when(L > max_panel)
-                def _(lo=lo, L=L, j=j):
-                    # long runs: aligned max_panel-sized chunk panels,
-                    # accumulated across chunks (the planner placed each
-                    # chunk contiguously) — one accumulate per chunk
-                    P = max_panel
-
-                    def chunk_slots(w0):
-                        for i in range(P):
-                            prep_item(w0 + i)
-                        return ((a_pk_ref[w0] >> 1) & 255,
-                                (b_pk_ref[w0] >> 1) & 255)
-
-                    sa0, sb0 = chunk_slots(lo)
-                    acc[j] = panel_dot(sa0, sb0, P)
-                    nfull = L // P
-
-                    def body(q, _, j=j, lo=lo):
-                        sa, sb = chunk_slots(lo + q * P)
-                        acc[j] += panel_dot(sa, sb, P)
-                        return 0
-
-                    jax.lax.fori_loop(1, nfull, body, 0, unroll=False)
-                    rem = L - nfull * P
-                    w0r = lo + nfull * P
-                    for rr in rem_lens:
-                        @pl.when(rem == rr)
-                        def _(rr=rr, w0r=w0r, j=j):
-                            for i in range(rr):
-                                prep_item(w0r + i)
-                            sa = (a_pk_ref[w0r] >> 1) & 255
-                            sb = (b_pk_ref[w0r] >> 1) & 255
-                            acc[j] += panel_dot(sa, sb, rr)
-            if stage is not None:
-                stage[...] = acc[...].astype(out_dtype)
-            pltpu.make_async_copy(
-                src, c_hbm.at[pl.ds(base, ogroup)], sem
-            ).start()
-
-        for pp in range(nbuf):
-            @pl.when(g % nbuf == pp)
-            def _(pp=pp):
-                group(accs[pp], stages[pp] if stages else None,
-                      csem.at[pp])
-
-        @pl.when(g == n_groups - 1)
-        def _drain():
-            for pp in range(nbuf):
-                @pl.when(g % nbuf == pp)
-                def _(pp=pp):
-                    for back in range(nbuf):
-                        bi = (pp - back) % nbuf
-                        src = stages[bi] if stages else accs[bi]
-
-                        @pl.when(g - back >= 0)
-                        def _(back=back, bi=bi, src=src):
-                            pltpu.make_async_copy(
-                                src,
-                                c_hbm.at[pl.ds((g - back) * ogroup,
-                                               ogroup)],
-                                csem.at[bi],
-                            ).wait()
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_c_tiles", "a_slots", "b_slots", "depth", "ogroup",
-                     "max_panel", "interpret", "precision", "out_dtype",
-                     "nbuf", "xpose", "short_lens", "rem_lens",
-                     "has_long", "a_major", "cache3d"),
-)
-def _run_pallas_panel(tile_ptr, a_packed, b_packed, a_tiles_t, b_tiles,
-                      n_c_tiles: int, a_slots: int, b_slots: int,
-                      depth: int = 4, ogroup: int = 8, max_panel: int = 4,
-                      interpret: bool = False, precision: str = "default",
-                      out_dtype=jnp.float32, nbuf: int = 2,
-                      xpose: bool = False, short_lens=None, rem_lens=None,
-                      has_long: bool = True, a_major: bool = False,
-                      cache3d: bool = False):
-    """``a_tiles_t``: k-transposed A tiles, (n_a, tk, tm) — unless
-    ``a_major``, where A tiles stay natural (n_a, tm, tk) and the cache
-    concatenates a run's tiles along lanes for the canonical contraction.
-    ``cache3d``: slot-major (slots, tk, x) caches — panel reads are
-    dynamic-START static-LENGTH leading-dim slices + a free collapse,
-    avoiding dynamic-offset slicing on tiled dims entirely."""
-    W = a_packed.shape[0]
-    if a_major:
-        tm, tk = a_tiles_t.shape[1], a_tiles_t.shape[2]
-    else:
-        tk, tm = a_tiles_t.shape[1], a_tiles_t.shape[2]
-    tn = b_tiles.shape[2]
-    n_groups = -(-n_c_tiles // ogroup)
-    out_dtype = jnp.dtype(out_dtype)
-    if cache3d:
-        assert not a_major and not xpose, "cache3d uses the k-major form"
-        scratch = [
-            pltpu.VMEM((a_slots, tk, tm), a_tiles_t.dtype),
-            pltpu.VMEM((b_slots, tk, tn), b_tiles.dtype),
-            pltpu.SemaphoreType.DMA((a_slots,)),
-            pltpu.SemaphoreType.DMA((b_slots,)),
-        ]
-    else:
-        scratch = [
-            pltpu.VMEM((tm, a_slots * tk) if a_major
-                       else (a_slots * tk, tm), a_tiles_t.dtype),
-            pltpu.VMEM((b_slots * tk, tn), b_tiles.dtype),
-            pltpu.SemaphoreType.DMA((a_slots,)),
-            pltpu.SemaphoreType.DMA((b_slots,)),
-        ]
-    scratch += [pltpu.VMEM((ogroup, tm, tn), jnp.float32)
-                for _ in range(nbuf)]
-    if out_dtype != jnp.float32:
-        scratch += [pltpu.VMEM((ogroup, tm, tn), out_dtype)
-                    for _ in range(nbuf)]
-    scratch.append(pltpu.SemaphoreType.DMA((nbuf,)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_groups,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=scratch,
-    )
-    itemsize = jnp.dtype(a_tiles_t.dtype).itemsize
-    out = pl.pallas_call(
-        _make_panel_kernel(W, n_groups, depth, ogroup, tk, max_panel,
-                           _resolve_precision(precision),
-                           out_dtype=out_dtype, nbuf=nbuf, xpose=xpose,
-                           short_lens=short_lens, rem_lens=rem_lens,
-                           has_long=has_long, a_major=a_major,
-                           cache3d=cache3d),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (n_groups * ogroup, tm, tn), out_dtype
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=_VMEM_LIMIT_BYTES,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * W * tm * tk * tn,
-            bytes_accessed=W * (tm * tk + tk * tn) * itemsize
-            + n_c_tiles * tm * tn * out_dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-        name="spada_panel",
-    )(tile_ptr, a_packed, b_packed, a_tiles_t, b_tiles)
-    # full [n_groups*ogroup, ...] — see _run_pallas_cached on why trimming
-    # must happen outside the jitted computation
-    return out
-
-
-def panel_launch_args(a_ids, b_ids, o_ids, n_c_tiles: int, *,
-                      a_slots: int, b_slots: int, depth: int,
-                      max_panel: int, ogroup: int):
-    """Host-side launch state for the panel kernel: grouped C-tile pointer,
-    packed per-item plan words, and the two panel plans.
-
-    Single source of truth for the run_ptr/plan/pack/tile_ptr sequence —
-    used by :func:`run_worklist_panel`, bench.py, and the eval/probe tools.
-    """
-    from spada_tpu.ops.panelplan import plan_panel_cache
-
-    o = np.asarray(o_ids)
-    n_groups = -(-n_c_tiles // ogroup)
-    run_ptr = np.searchsorted(o, np.arange(n_c_tiles + 1)).astype(np.int64)
-    a_plan = plan_panel_cache(a_ids, run_ptr, a_slots, depth, max_panel)
-    b_plan = plan_panel_cache(b_ids, run_ptr, b_slots, depth, max_panel)
-    apk = _pack_plan(a_ids, a_plan)
-    bpk = _pack_plan(b_ids, b_plan)
-    tile_ptr = np.searchsorted(
-        o, np.arange(n_groups * ogroup + 1)
-    ).astype(np.int32)
-    return tile_ptr, apk, bpk, a_plan, b_plan
-
-
-def run_worklist_panel(a_tiles, b_tiles, a_ids, b_ids, o_ids,
-                       n_c_tiles: int, a_slots: int = 12, b_slots: int = 16,
-                       depth: int = 4, ogroup: int = 8, max_panel: int = 4,
-                       interpret: Optional[bool] = None,
-                       precision: str = "default",
-                       out_dtype=jnp.float32, nbuf: int = 2,
-                       a_tiles_t=None, run_order: Optional[str] = None,
-                       c_rows=None, c_cols=None, xpose: bool = False,
-                       a_major: bool = False, cache3d: bool = False):
-    """Panel-dot engine; returns (c_tiles, a_plan, b_plan, run_perm).
-
-    ``a_tiles`` may be passed pre-transposed via ``a_tiles_t`` (n, tk, tm)
-    to keep the one-time layout change off the device graph; otherwise it
-    is transposed on device.  With ``a_major`` A tiles stay natural and a
-    run's tiles concatenate along lanes in the cache (canonical (m,k)x(k,n)
-    contraction instead of the transposed-lhs form).
-
-    ``run_order`` ('row' | 'col' | 'diag' | 'auto', needs ``c_rows`` /
-    ``c_cols``) permutes the C-tile processing order to maximize panel
-    adjacency reuse; the returned ``run_perm`` maps output position ->
-    original C tile index (None = identity).  'auto' plans all traversals
-    and takes the fewest total loads.
-    """
-    from spada_tpu.ops.panelplan import (
-        choose_run_order, order_runs, permute_runs)
-
-    if interpret is None:
-        interpret = not _on_tpu()
-    o = np.asarray(o_ids)
-    tm, tk = a_tiles.shape[1], a_tiles.shape[2]
-    tn = b_tiles.shape[2]
-    if len(o) == 0 or n_c_tiles == 0:
-        return (jnp.zeros((n_c_tiles, tm, tn), jnp.dtype(out_dtype)),
-                None, None, None)
-    isz = np.dtype(a_tiles.dtype).itemsize
-    # VMEM fit (12 MiB) BEFORE traversal choice, so 'auto' ranks the orders
-    # under the slot counts the kernel actually launches with
-    total = 12 * 1024 * 1024
-    while ogroup > 1 and 2 * ogroup * tm * tn * 4 > total // 2:
-        ogroup //= 2
-    budget = total - 2 * ogroup * tm * tn * 4
-    need = (a_slots * tk * tm + b_slots * tk * tn) * isz
-    floor = max_panel + depth + 2
-    if need > budget:
-        scale = budget / need
-        a_slots = max(floor, int(a_slots * scale))
-        b_slots = max(floor, int(b_slots * scale))
-    run_perm = None
-    if run_order is not None and run_order != "row" and n_c_tiles > 0:
-        assert c_rows is not None and c_cols is not None, \
-            "run_order needs c_rows/c_cols"
-        run_ptr0 = np.searchsorted(
-            o, np.arange(n_c_tiles + 1)).astype(np.int64)
-        if run_order == "auto":
-            run_order, run_perm, _ = choose_run_order(
-                a_ids, b_ids, run_ptr0, c_rows, c_cols,
-                a_slots, b_slots, depth, max_panel)
-        else:
-            run_perm = order_runs(c_rows, c_cols, run_order)
-        if run_order == "row":
-            run_perm = None  # auto picked the identity traversal
-        else:
-            _, o, a_ids, b_ids = permute_runs(
-                run_perm, run_ptr0, a_ids, b_ids)
-    if len(a_ids) > _MAX_ITEMS_PER_LAUNCH:
-        outs = []
-        for o_lo, o_hi, w_lo, w_hi in _split_by_items(
-            o, n_c_tiles, _MAX_ITEMS_PER_LAUNCH
-        ):
-            c, _, _, _ = run_worklist_panel(
-                a_tiles, b_tiles, a_ids[w_lo:w_hi], b_ids[w_lo:w_hi],
-                o[w_lo:w_hi] - o_lo, o_hi - o_lo, a_slots=a_slots,
-                b_slots=b_slots, depth=depth, ogroup=ogroup,
-                max_panel=max_panel, interpret=interpret,
-                precision=precision, out_dtype=out_dtype, nbuf=nbuf,
-                a_tiles_t=a_tiles_t, xpose=xpose, a_major=a_major,
-                cache3d=cache3d,
-            )
-            outs.append(c)
-        return jnp.concatenate(outs, axis=0), None, None, run_perm
-    tile_ptr, apk, bpk, a_plan, b_plan = panel_launch_args(
-        a_ids, b_ids, o, n_c_tiles, a_slots=a_slots, b_slots=b_slots,
-        depth=depth, max_panel=max_panel, ogroup=ogroup)
-    if a_major:
-        a_tiles_t = jnp.asarray(a_tiles)  # natural layout; no transpose
-    elif a_tiles_t is None:
-        a_tiles_t = jnp.swapaxes(jnp.asarray(a_tiles), 1, 2)
-    # static branch pruning: emit only run/chunk lengths that occur
-    lens = np.diff(np.searchsorted(o, np.arange(n_c_tiles + 1)))
-    lens = lens[lens > 0]
-    short_lens = tuple(sorted(np.unique(lens[lens <= max_panel]).tolist()))
-    long = lens[lens > max_panel]
-    rems = np.unique(long % max_panel)
-    rem_lens = tuple(sorted(int(x) for x in rems if x > 0))
-    c = _run_pallas_panel(
-        jnp.asarray(tile_ptr), jnp.asarray(apk), jnp.asarray(bpk),
-        jnp.asarray(a_tiles_t), jnp.asarray(b_tiles),
-        n_c_tiles=n_c_tiles, a_slots=a_slots, b_slots=b_slots,
-        depth=depth, ogroup=ogroup, max_panel=max_panel,
-        interpret=bool(interpret), precision=precision,
-        out_dtype=out_dtype, nbuf=nbuf, xpose=xpose, a_major=a_major,
-        cache3d=cache3d, short_lens=short_lens, rem_lens=rem_lens,
-        has_long=bool(len(long)),
-    )
-    return c[:n_c_tiles], a_plan, b_plan, run_perm

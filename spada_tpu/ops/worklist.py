@@ -1,19 +1,19 @@
 """Host-side symbolic phase: tile-level work-list construction.
 
-This is the TPU-native replacement for the reference's cycle-by-cycle task
-assignment (``Scheduler::assign_task`` / ``next_block`` / ``next_window``,
+This replaces the reference's cycle-by-cycle task assignment
+(``Scheduler::assign_task`` / ``next_block`` / ``next_window``,
 scheduler.rs:234-606): instead of the simulator issuing one window at a time,
-the entire multiply schedule is planned up front as a flat list of MXU tile
+the entire multiply schedule is planned up front as a flat list of tile
 products, sorted to make partial-sum accumulation a *consecutive* revisit of
-each output tile (which is what lets the Pallas kernel keep the accumulator in
-VMEM — the "psum buffer" analog).
+each output tile (which is what lets the tile kernel keep each output run's
+accumulator in registers — the "psum buffer" analog).
 
 Work item w: C[out ⟵ ti,tj] += A_tile[a_tid[w]] @ B_tile[b_tid[w]].
 
 Orderings (the dataflow axis of the reference's ``Accelerator`` enum,
 frontend.rs:36-41):
 - row-major (``spada``/``rowwise``/``ip``): sorted by output tile, k inner —
-  output-stationary Gustavson; safe for in-VMEM accumulation.
+  output-stationary Gustavson; safe for in-register run accumulation.
 - k-major (``op``): outer-product order, k outermost — partials for one output
   tile are non-consecutive, so the engine must scatter-accumulate (HBM psums,
   the analog of psum spill to ``psum_mem``, storage.rs:626-679).

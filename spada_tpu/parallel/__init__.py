@@ -10,7 +10,7 @@ scheduler decomposition:
 - **tp** (tensor parallel over K): the contraction dimension is sharded; each
   shard produces partial C tiles and the distributed psum-merge is a
   ``jax.lax.psum`` over the ``tp`` axis — the reference's merge-task graph
-  (scheduler.rs:381-480, 820-920) realized as an XLA collective over ICI.
+  (scheduler.rs:381-480, 820-920) realized as an XLA collective (NCCL over NVLink on GPUs).
 - **halo** (dp-only alternative): B stays k-sharded and each device fetches
   the B tiles its worklist needs via a bucketed ``all_to_all`` exchange —
   the "ragged all-to-all" design of SURVEY.md §5.8, made static-shape by

@@ -24,7 +24,7 @@ nowhere).  The jaxpr contains no collective at all — asserted in tests.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -145,57 +145,23 @@ class ElementDpResult:
         return self.to_csr().todense()
 
 
-def build_dp_program(problem: ElementDpProblem, mesh=None,
-                     backend: str = "auto",
-                     interpret: Optional[bool] = None):
+def build_dp_program(problem: ElementDpProblem, mesh=None):
     """(shard_mapped fn, device operand list) — exposed so tests can assert
     the jaxpr of the REAL program contains no collectives.
 
-    ``backend``: per-shard executor — 'pallas' runs the single-chip
-    element default (the pipelined stream kernels of
-    ops/element_stream.py, measured 1.03 vs 1.20 ms on locpl-64k) on each
-    shard's class slices; 'xla' the fused elementwise form; 'auto'
-    resolves pallas on TPU, xla elsewhere — the same engine-inside-
-    shard_map principle as parallel/cached.py for the tile path."""
+    Each operand is placed with its dp sharding, so every device holds
+    only its own slab.  The per-shard body is the single-chip XLA
+    executor: a multiply and a row sum per length class."""
     import jax
     import jax.numpy as jnp
     from jax import shard_map
-    from jax.sharding import Mesh, PartitionSpec as P
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from spada_tpu.ops.element import resolve_element_backend
-
-    backend = resolve_element_backend(backend)
     if mesh is None:
         devs = jax.devices()[: problem.n_dev]
         mesh = Mesh(np.array(devs), ("dp",))
 
     n_classes = len(problem.classes)
-
-    if backend == "pallas":
-        from spada_tpu.ops.element_stream import stacked_class_layout
-
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-        flat, calls = [], []
-        for ci, L in enumerate(problem.classes):
-            av, bv = problem.a_stacked[ci], problem.b_stacked[ci]
-            shp, call = stacked_class_layout(L, av.shape[1], interpret)
-            calls.append(call)
-            flat += [jnp.asarray(shp(av)), jnp.asarray(shp(bv))]
-
-        def local(*xs):
-            return tuple(
-                call(xs[2 * i][0], xs[2 * i + 1][0])[None]
-                for i, call in enumerate(calls))
-
-        fn = shard_map(
-            local, mesh=mesh,
-            in_specs=tuple(P("dp") for _ in flat),
-            out_specs=tuple(P("dp") for _ in range(n_classes)),
-            # pallas_call outputs are opaque to the vma checker
-            check_vma=False,
-        )
-        return fn, flat
 
     def local(*flat):
         outs = []
@@ -208,9 +174,10 @@ def build_dp_program(problem: ElementDpProblem, mesh=None,
                 outs.append(jnp.sum(prod, axis=1)[None])
         return tuple(outs)
 
+    shard = NamedSharding(mesh, P("dp"))
     flat = []
     for av, bv in zip(problem.a_stacked, problem.b_stacked):
-        flat += [jnp.asarray(av), jnp.asarray(bv)]
+        flat += [jax.device_put(av, shard), jax.device_put(bv, shard)]
     fn = shard_map(
         local, mesh=mesh,
         in_specs=tuple(P("dp") for _ in flat),
@@ -219,16 +186,15 @@ def build_dp_program(problem: ElementDpProblem, mesh=None,
     return fn, flat
 
 
-def spgemm_element_dp(problem: ElementDpProblem, mesh=None,
-                      backend: str = "auto") -> ElementDpResult:
+def spgemm_element_dp(problem: ElementDpProblem,
+                      mesh=None) -> ElementDpResult:
     """One communication-free shard_map launch over ('dp',)."""
     import jax
 
-    fn, flat = build_dp_program(problem, mesh, backend=backend)
+    fn, flat = build_dp_program(problem, mesh)
     vals = jax.jit(fn)(*flat)
-    # normalize to [n_dev, flat-chunk] so extraction is backend-agnostic
-    # (pallas L=1 classes come back [D, rows, 1024]; L>=2 [D, 1, n_pad];
-    # padding is tail-only in both, so [:nd] slices stay valid)
+    # normalize to [n_dev, flat-chunk]; padding is tail-only, so [:nd]
+    # slices stay valid
     n_dev = problem.n_dev
     return ElementDpResult(
         problem, [np.asarray(v).reshape(n_dev, -1) for v in vals])

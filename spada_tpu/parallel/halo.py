@@ -5,7 +5,7 @@ here the mesh is 1-D (``dp``), A/C are row-panel sharded, and **B is
 k-slab sharded** — no device holds all of B.  Each device's worklist needs B
 tiles owned by other devices; they are exchanged over D-1 ``ppermute``
 rounds (offset r: every device ships to its r-th ring neighbour), the
-TPU-native shape of the reference's overlapped memory traffic
+device-level shape of the reference's overlapped memory traffic
 (simulator.rs:604-637 drains DRAM requests *while* PEs compute):
 
 - **Per-offset capacities**: round r's buffer is sized by the largest
@@ -15,9 +15,9 @@ TPU-native shape of the reference's overlapped memory traffic
 - **Overlap**: every ppermute depends only on the *resident* local B tiles,
   never on compute, and each device's worklist is segmented by source round
   — local-B items first, then round-1 items, etc.  XLA's latency-hiding
-  scheduler hoists the ICI transfers over the local segment's tile
+  scheduler can hoist the transfers over the local segment's tile
   products, so communication hides behind compute instead of serializing
-  in front of it (verified by the weak-scaling eval, tools/eval_scaling.py).
+  in front of it.
 
 Compared to the psum-merge strategy, communication moves *B tiles* once
 instead of *C partials*; the planner picks whichever moves fewer bytes —
@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from spada_tpu.config import SpadaConfig
 from spada_tpu.parallel.partition import _balanced_row_splits
@@ -53,7 +53,8 @@ class HaloProblem:
       a_tiles   f32 [D, Amax, tm, tk]     slot Amax-1 is a zero pad tile
       a_tid/b_tid/o_tid i32 [D, ΣWseg]    worklists segmented by round:
                                           items [seg_ptr[r], seg_ptr[r+1])
-                                          use B from round r (0 = local).
+                                          use B from round r (0 = local),
+                                          o-sorted within each segment.
                                           b_tid indexes the local buffer
                                           (round 0) or the round's receive
                                           buffer; padded items hit the zero
@@ -219,6 +220,8 @@ def partition_halo(
                 mem = np.nonzero(rounds_s == r)[0]
                 if not len(mem):
                     continue
+                # o-sorted within the segment (one run per C tile)
+                mem = mem[np.argsort(o_s[mem], kind="stable")]
                 lo = seg_ptr[r]
                 a_tid[d, lo : lo + len(mem)] = rep_s[mem]
                 o_tid[d, lo : lo + len(mem)] = o_s[mem]
@@ -244,22 +247,6 @@ def partition_halo(
     )
 
 
-def _engine_acc(c, a_tid, b_tid, o_tid, a_tiles, b_tiles, chunk, precision):
-    """Scatter-accumulate one worklist segment into the carried C tiles."""
-    W = a_tid.shape[0]
-    n_chunks = -(-W // chunk) if W else 0
-    for s in range(n_chunks):
-        sl = slice(s * chunk, min((s + 1) * chunk, W))
-        part = jax.lax.dot_general(
-            a_tiles[a_tid[sl]], b_tiles[b_tid[sl]],
-            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-        c = c.at[o_tid[sl]].add(part)
-    return c
-
-
 def _issue_recvs(bl, send_idx, D: int):
     """Issue every round's B-tile ppermute up front — no compute
     dependency, so the transfers overlap the local segment's products.
@@ -276,6 +263,8 @@ def _issue_recvs(bl, send_idx, D: int):
 
 def _halo_xla(p: HaloProblem, mesh: Mesh, chunk: int, precision):
     """Portable per-shard engine: XLA chunked scatter-add per segment."""
+    from spada_tpu.ops.engine import accumulate_xla
+
     D = p.n_dev
 
     def per_shard(a_tid, b_tid, o_tid, a_tiles, b_tiles, *send_idx):
@@ -286,12 +275,12 @@ def _halo_xla(p: HaloProblem, mesh: Mesh, chunk: int, precision):
         c = jnp.zeros((p.nCmax + 1, p.tm, p.tn), jnp.float32)
         # local segment first: overlaps with the in-flight transfers
         s0, s1 = p.seg_ptr[0], p.seg_ptr[1]
-        c = _engine_acc(c, a_tid[s0:s1], b_tid[s0:s1], o_tid[s0:s1],
+        c = accumulate_xla(c, a_tid[s0:s1], b_tid[s0:s1], o_tid[s0:s1],
                         at, bl, chunk, precision)
         for r in range(1, D):
             lo, hi = p.seg_ptr[r], p.seg_ptr[r + 1]
             buf = jnp.concatenate([recvs[r - 1], zero], axis=0)
-            c = _engine_acc(c, a_tid[lo:hi], b_tid[lo:hi], o_tid[lo:hi],
+            c = accumulate_xla(c, a_tid[lo:hi], b_tid[lo:hi], o_tid[lo:hi],
                             at, buf, chunk, precision)
         return c[None]
 
@@ -301,62 +290,39 @@ def _halo_xla(p: HaloProblem, mesh: Mesh, chunk: int, precision):
         in_specs=(P("dp"),) * 5 + (P("dp"),) * (D - 1),
         out_specs=P("dp"),
     )
+    shard = NamedSharding(mesh, P("dp"))
     return jax.jit(fn)(
-        jnp.asarray(p.a_tid), jnp.asarray(p.b_tid), jnp.asarray(p.o_tid),
-        jnp.asarray(p.a_tiles), jnp.asarray(p.b_tiles),
-        *[jnp.asarray(s) for s in p.send_idx],
-    )
+        *(jax.device_put(x, shard) for x in (
+            p.a_tid, p.b_tid, p.o_tid, p.a_tiles, p.b_tiles, *p.send_idx)))
 
 
-def _halo_cached(p: HaloProblem, mesh: Mesh, cached_slots, engine_dtype,
-                 interpret):
-    """Flagship cached Pallas kernel per worklist segment.
+def _halo_triton(p: HaloProblem, mesh: Mesh, engine_dtype, interpret):
+    """Tile kernel per worklist segment, one launch per source round.
 
-    One launch per source round, each with its own o-sorted worklist and
-    Belady VMEM plan (host-built, parallel/cached.py); the round partials
-    sum into C.  Tiles ride bf16 (engine dtype), so the ppermuted halo
-    also ships bf16 — half the ICI bytes of the f32 XLA path.
+    Each segment is o-sorted and read through its own run pointer; the
+    round partials sum into C.  Tiles ride bf16 by default, so the
+    ppermuted halo also ships bf16 — half the bytes of the f32 XLA path.
     """
-    from spada_tpu.ops.engine import (_on_tpu, _run_pallas_cached,
-                                      default_cached_slots,
-                                      fit_cached_config)
-    from spada_tpu.parallel.cached import build_cached_plans
+    from spada_tpu.ops.engine import _run_triton
+    from spada_tpu.parallel.spgemm import shard_run_pointers
 
     D = p.n_dev
-    if interpret is None:
-        interpret = not _on_tpu()
+    n_c = p.nCmax + 1                   # dump slot included
     dtype = engine_dtype or jnp.bfloat16
-    if cached_slots is None:
-        cached_slots = default_cached_slots(p.tm, p.tk, p.tn)
-    a_sl, b_sl, depth, ogroup = fit_cached_config(
-        p.tm, p.tk, p.tn, np.dtype(dtype).itemsize, *cached_slots)
-    plans = [
-        build_cached_plans(
-            p.a_tid[:, p.seg_ptr[r]:p.seg_ptr[r + 1]],
-            p.b_tid[:, p.seg_ptr[r]:p.seg_ptr[r + 1]],
-            p.o_tid[:, p.seg_ptr[r]:p.seg_ptr[r + 1]],
-            p.nCmax, a_slots=a_sl, b_slots=b_sl, depth=depth,
-            ogroup=ogroup,
-        )
-        for r in range(D)
-    ]
+    segs = list(zip(p.seg_ptr[:-1], p.seg_ptr[1:]))
+    ptrs = [shard_run_pointers(p.o_tid[:, lo:hi], n_c) for lo, hi in segs]
 
-    def per_shard(a_tiles, b_tiles, *rest):
-        send_idx, plan_args = rest[: D - 1], rest[D - 1:]
+    def per_shard(a_tid, b_tid, a_tiles, b_tiles, *rest):
+        send_idx, ptr = rest[: D - 1], rest[D - 1:]
         at, bl = a_tiles[0], b_tiles[0]
         recvs = _issue_recvs(bl, send_idx, D)
         zero = jnp.zeros((1, p.tk, p.tn), bl.dtype)
 
         def seg(r, buf):
-            pl_ = plans[r]
-            tp_, ap_, bp_ = plan_args[3 * r: 3 * r + 3]
-            return _run_pallas_cached(
-                tp_[0], ap_[0], bp_[0], at, buf,
-                n_c_tiles=pl_.n_c_tiles, a_slots=pl_.a_slots,
-                b_slots=pl_.b_slots, depth=pl_.depth, ogroup=pl_.ogroup,
-                interpret=interpret, precision="default",
-                out_dtype=jnp.float32,
-            )
+            lo, hi = segs[r]
+            return _run_triton(ptr[r][0], a_tid[0, lo:hi], b_tid[0, lo:hi],
+                               at, buf, n_c_tiles=n_c, precision="default",
+                               interpret=interpret)
 
         # local segment first: no dependence on the in-flight transfers
         c = seg(0, bl)
@@ -364,75 +330,58 @@ def _halo_cached(p: HaloProblem, mesh: Mesh, cached_slots, engine_dtype,
             c = c + seg(r, jnp.concatenate([recvs[r - 1], zero], axis=0))
         return c[None]
 
-    plan_flat = [x for pl_ in plans
-                 for x in (pl_.tile_ptr, pl_.a_pk, pl_.b_pk)]
     fn = jax.shard_map(
         per_shard,
         mesh=mesh,
-        in_specs=(P("dp"),) * (2 + (D - 1) + 3 * D),
+        in_specs=(P("dp"),) * (4 + (D - 1) + D),
         out_specs=P("dp"),
         # pallas_call's out ShapeDtypeStruct carries no varying-mesh-axes
         # annotation, so the vma checker cannot see through it
         check_vma=False,
     )
+    shard = NamedSharding(mesh, P("dp"))
     return jax.jit(fn)(
-        jnp.asarray(p.a_tiles).astype(dtype),
-        jnp.asarray(p.b_tiles).astype(dtype),
-        *[jnp.asarray(s) for s in p.send_idx],
-        *[jnp.asarray(x) for x in plan_flat],
-    )
+        *(jax.device_put(x, shard) for x in (
+            p.a_tid, p.b_tid, p.a_tiles.astype(dtype),
+            p.b_tiles.astype(dtype), *p.send_idx, *ptrs)))
 
 
 def spgemm_halo(problem: HaloProblem, mesh: Optional[Mesh] = None,
                 chunk: int = 1024,
                 precision=jax.lax.Precision.HIGHEST,
                 engine: str = "auto",
-                cached_slots=None,
                 engine_dtype=None,
-                interpret: Optional[bool] = None):
+                interpret: bool = False):
     """Execute: ppermute the B-tile halo rounds, overlapped with local work.
 
     All D-1 permutes are issued before any compute (they depend only on the
     resident B tiles); the segment-ordered worklist then lets XLA run the
-    local segment while the ICI transfers are in flight.
+    local segment while the transfers are in flight.
 
-    ``engine``: ``'cached'`` runs the flagship Pallas VMEM-cached kernel
-    per worklist segment (bf16 tiles — the halo rounds then also ship
-    bf16 over ICI, halving the exchanged bytes); ``'xla'`` the portable
-    f32 scatter-add; ``'auto'`` cached on TPU, xla elsewhere.  The cached
-    variant launches one kernel per source round (each with its own
-    o-sorted Belady plan) and sums the partial C tiles — the per-round
-    launch keeps the local segment free of any dependence on the
-    in-flight transfers, preserving the overlap structure.
+    ``engine``: ``'triton'`` runs the tile kernel per worklist segment
+    (bf16 tiles by default — the halo rounds then also ship bf16, halving
+    the exchanged bytes); ``'xla'`` the portable f32 scatter-add;
+    ``'auto'`` triton on a GPU, xla elsewhere.  The kernel variant
+    launches once per source round and sums the partial C tiles, which
+    keeps the local segment free of any dependence on the in-flight
+    transfers.
     """
-    from spada_tpu.ops.engine import _MAX_ITEMS_PER_LAUNCH, _on_tpu
     from spada_tpu.parallel.spgemm import ShardedResult
+    from spada_tpu.platform import on_gpu
 
     p = problem
     D = p.n_dev
     if mesh is None:
         devs = np.array(jax.devices()[:D])
         mesh = Mesh(devs, ("dp",))
-    was_auto = engine == "auto"
-    if was_auto:
-        engine = "cached" if _on_tpu() else "xla"
-    seg_max = max(b - a for a, b in zip(p.seg_ptr[:-1], p.seg_ptr[1:]))
-    if engine == "cached" and seg_max > _MAX_ITEMS_PER_LAUNCH:
-        # per-round packed plans are SMEM scalar-prefetch operands (70k
-        # cap); oversized segments fall back (auto) or fail loudly —
-        # raising n_dev shrinks every segment
-        if was_auto:
-            engine = "xla"
-        else:
-            raise ValueError(
-                f"halo worklist segment of {seg_max} items exceeds the "
-                f"cached kernel's {_MAX_ITEMS_PER_LAUNCH}-item SMEM cap; "
-                "partition with more devices or use engine='xla'")
-
-    if engine == "cached":
-        c = _halo_cached(p, mesh, cached_slots, engine_dtype, interpret)
-    else:
+    if engine == "auto":
+        engine = "triton" if on_gpu() else "xla"
+    if engine == "triton":
+        c = _halo_triton(p, mesh, engine_dtype, interpret)
+    elif engine == "xla":
         c = _halo_xla(p, mesh, chunk, precision)
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
 
     # adapt to ShardedResult's (n_dp, nCmax+1, ...) surface: fake tp dim
     class _P:
@@ -444,7 +393,5 @@ def spgemm_halo(problem: HaloProblem, mesh: Optional[Mesh] = None,
     prob.shape = p.shape
     prob.c_tile_row, prob.c_tile_col = p.c_tile_row, p.c_tile_col
     prob.row_base, prob.n_c_tiles = p.row_base, p.n_c_tiles
-    # cached engine returns the full group-padded tile dim (pad tiles are
-    # exact zeros); trim host-side to the ShardedResult surface
     return ShardedResult(problem=prob,
                          c_tiles=np.asarray(c)[:, : p.nCmax + 1])

@@ -29,7 +29,7 @@ class ShardedProblem:
     Array layouts (leading dims are mesh dims; ``S = n_dp * n_tp`` shards):
       a_tiles  f32 [n_dp, n_tp, Amax, tm, tk]   (slot Amax-1 is all-zero)
       b_tiles  f32 [n_dp, n_tp, Bmax, tk, tn]   (slot Bmax-1 is all-zero)
-      a_tid/b_tid/o_tid  i32 [n_dp, n_tp, Wmax]
+      a_tid/b_tid/o_tid  i32 [n_dp, n_tp, Wmax], o-sorted per shard
       (o_tid == nCmax marks the dump tile; valid ids are per-dp C-tile slots)
     Per-dp symbolic C structure:
       c_tile_row/c_tile_col  i32 [n_dp, nCmax]  (-1 marks padding slots)
@@ -157,10 +157,14 @@ def partition_spgemm(
             b_remap[bsel_local] = np.arange(len(bsel_local))
             b_tid_l = b_remap[b_ids_full[wsel]]
             assert (a_tid_l >= 0).all() and (b_tid_l >= 0).all()
+            # o-sorted, so each C tile's items form one run (the tile
+            # kernel reads runs through a run pointer)
+            o_l = o_full[wsel]
+            order = np.argsort(o_l, kind="stable")
             shard_data.append((
                 a_bsr.tiles[a_sel[asel_local]],
                 b_bsr.tiles[bsel_local],
-                a_tid_l, b_tid_l, o_full[wsel],
+                a_tid_l[order], b_tid_l[order], o_l[order],
             ))
 
     nCmax = max((m[2] for m in dp_meta), default=0) or 1
@@ -241,7 +245,7 @@ def choose_parallel_strategy(
     tk, tn = config.tile_k, config.tile_n
 
     halo = partition_halo(a, b, n_dev, config, tm=tm)
-    # padded slots are what actually ride the ICI (per-offset ppermute
+    # padded slots are what actually ride the links (per-offset ppermute
     # capacities keep padding near the true count, unlike a global cap)
     halo_bytes = halo.halo_tiles_padded * tk * tn * 4
 

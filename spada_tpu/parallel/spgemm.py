@@ -4,10 +4,11 @@ One ``shard_map`` launch: every (dp, tp) shard runs the tile engine on its
 local worklist; the partial C tiles produced by the tp shards of a dp row
 panel are combined with ``jax.lax.psum`` over ``tp`` — the distributed
 psum-merge (SURVEY.md §5.7/5.8: the reference's merge-task graph,
-scheduler.rs:381-480, as an ICI collective).  C stays sharded over ``dp``
+scheduler.rs:381-480, as a collective).  C stays sharded over ``dp``
 (each device owns its row panel), so the only cross-device traffic is the
 tp-merge; dp is communication-free, matching the row-partitioned Gustavson
-decomposition.
+decomposition.  Every input is placed with its (dp, tp) sharding, so each
+device holds only its own shard.
 """
 
 from __future__ import annotations
@@ -22,29 +23,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from spada_tpu.parallel.partition import ShardedProblem
 from spada_tpu.sparse.csr import CsrMatrix
-
-
-def _local_engine(a_tid, b_tid, o_tid, a_tiles, b_tiles, n_c_tiles: int,
-                  chunk: int, precision):
-    """Scatter-accumulate tile engine on one shard's local worklist.
-
-    Output has one extra dump slot (index ``n_c_tiles``) that absorbs padded
-    work items; the caller drops it.
-    """
-    W = a_tid.shape[0]
-    tm, tn = a_tiles.shape[1], b_tiles.shape[2]
-    c = jnp.zeros((n_c_tiles + 1, tm, tn), jnp.float32)
-    n_chunks = -(-W // chunk) if W else 0
-    for s in range(n_chunks):
-        sl = slice(s * chunk, min((s + 1) * chunk, W))
-        part = jax.lax.dot_general(
-            a_tiles[a_tid[sl]], b_tiles[b_tid[sl]],
-            dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-        c = c.at[o_tid[sl]].add(part)
-    return c
 
 
 @dataclasses.dataclass
@@ -108,7 +86,7 @@ def _merge_tp(c, mesh: Mesh, merge: str):
     each tp rank holding a tile-range shard (reassembled by the out
     spec); ``'psum'`` all-reduces (2x the bytes) and replicates C over
     tp.  Both are the distributed merge-task graph (scheduler.rs:381-480)
-    as an ICI collective.
+    as a collective.
     """
     n_tp = mesh.shape["tp"]
     if n_tp == 1:
@@ -133,26 +111,28 @@ def make_sharded_fn(mesh: Mesh, n_c_tiles: int, chunk: int = 1024,
     The returned fn takes the stacked per-shard arrays of
     :class:`ShardedProblem` and returns C tiles [n_dp, >=n_c_tiles+1, tm,
     tn] (slice to ``n_c_tiles`` + dump slot).  See :func:`_merge_tp` for
-    the ``merge`` choices.  For the fast per-shard engine (the flagship
-    Pallas cached kernel) use :func:`make_sharded_cached_fn`.
+    the ``merge`` choices.  :func:`make_sharded_triton_fn` runs the tile
+    kernel per shard instead.
     """
+    from spada_tpu.ops.engine import accumulate_xla
+
     n_tp = mesh.shape["tp"]
 
     def per_shard(a_tid, b_tid, o_tid, a_tiles, b_tiles):
-        # shard_map passes blocks with leading mesh dims of size 1
-        c = _local_engine(
-            a_tid[0, 0], b_tid[0, 0], o_tid[0, 0],
-            a_tiles[0, 0], b_tiles[0, 0],
-            n_c_tiles=n_c_tiles, chunk=chunk, precision=precision,
-        )
+        # shard_map passes blocks with leading mesh dims of size 1; C has
+        # one extra dump slot (index n_c_tiles) for padded work items
+        at, bt = a_tiles[0, 0], b_tiles[0, 0]
+        c = jnp.zeros((n_c_tiles + 1, at.shape[1], bt.shape[2]),
+                      jnp.float32)
+        c = accumulate_xla(c, a_tid[0, 0], b_tid[0, 0], o_tid[0, 0], at, bt,
+                           chunk, precision)
         return _merge_tp(c, mesh, merge)[None]
 
     out_tp = merge == "reduce_scatter" and n_tp > 1
     fn = jax.shard_map(
         per_shard,
         mesh=mesh,
-        in_specs=(P("dp", "tp"), P("dp", "tp"), P("dp", "tp"),
-                  P("dp", "tp"), P("dp", "tp")),
+        in_specs=(P("dp", "tp"),) * 5,
         # reduce_scatter: tp ranks hold consecutive tile ranges; the out
         # spec concatenates them back along the tile dim
         out_specs=P("dp", "tp") if out_tp else P("dp"),
@@ -164,40 +144,24 @@ def make_sharded_fn(mesh: Mesh, n_c_tiles: int, chunk: int = 1024,
     return jax.jit(fn)
 
 
-def make_sharded_cached_fn(mesh: Mesh, plans, merge: str = "reduce_scatter",
-                           interpret: bool = False,
-                           precision: str = "default",
-                           out_dtype=None):
-    """shard_map SpGEMM running the flagship cached Pallas kernel per shard.
-
-    ``plans`` is a :class:`~spada_tpu.parallel.cached.CachedShardPlans`
-    built from the problem's worklists (static host-side data); each
-    device executes its own o-sorted worklist with its own Belady VMEM
-    cache plan — the single-chip engine, unchanged, inside the
-    distributed program (VERDICT round-4 item 2; the reference's per-PE
-    datapath sharing one cache, simulator.rs:473-497, lifted to chips).
-
-    The returned fn takes (tile_ptr, a_pk, b_pk, a_tiles, b_tiles) with
-    leading [n_dp, n_tp] dims; tiles should already be in the engine
-    dtype (bf16 for the flagship config).  Output layout matches
-    :func:`make_sharded_fn` (dump slot at index ``plans.n_c_tiles - 1``).
-    """
-    from spada_tpu.ops.engine import _run_pallas_cached
+def make_sharded_triton_fn(mesh: Mesh, n_c_tiles: int,
+                           merge: str = "reduce_scatter",
+                           interpret: bool = False):
+    """shard_map SpGEMM running the run-accumulating tile kernel
+    (:func:`spada_tpu.ops.engine.run_worklist_triton`) on every shard's
+    o-sorted worklist.  The returned fn takes (run_ptr, a_tid, b_tid,
+    a_tiles, b_tiles) with leading [n_dp, n_tp] dims; ``run_ptr`` covers
+    ``n_c_tiles + 1`` tiles (the dump slot included).  Output layout
+    matches :func:`make_sharded_fn`."""
+    from spada_tpu.ops.engine import _run_triton
 
     n_tp = mesh.shape["tp"]
-    # single-tp meshes have no merge, so the flagship bf16 writeback is
-    # exact-as-single-chip; with a tp merge the partials sum in f32
-    od = out_dtype or (jnp.bfloat16 if n_tp == 1 else jnp.float32)
 
-    def per_shard(tile_ptr, a_pk, b_pk, a_tiles, b_tiles):
-        c = _run_pallas_cached(
-            tile_ptr[0, 0], a_pk[0, 0], b_pk[0, 0],
-            a_tiles[0, 0], b_tiles[0, 0],
-            n_c_tiles=plans.n_c_tiles, a_slots=plans.a_slots,
-            b_slots=plans.b_slots, depth=plans.depth, ogroup=plans.ogroup,
-            interpret=interpret, precision=precision,
-            out_dtype=od,
-        )
+    def per_shard(run_ptr, a_tid, b_tid, a_tiles, b_tiles):
+        c = _run_triton(run_ptr[0, 0], a_tid[0, 0], b_tid[0, 0],
+                        a_tiles[0, 0], b_tiles[0, 0],
+                        n_c_tiles=n_c_tiles + 1, precision="default",
+                        interpret=interpret)
         return _merge_tp(c, mesh, merge)[None]
 
     out_tp = merge == "reduce_scatter" and n_tp > 1
@@ -213,89 +177,62 @@ def make_sharded_cached_fn(mesh: Mesh, plans, merge: str = "reduce_scatter",
     return jax.jit(fn)
 
 
+def shard_run_pointers(o_tid: np.ndarray, n_c_tiles: int) -> np.ndarray:
+    """Run pointers [..., n_c_tiles + 1] of stacked o-sorted worklists."""
+    from spada_tpu.ops.engine import run_pointer
+
+    flat = o_tid.reshape(-1, o_tid.shape[-1])
+    ptr = np.stack([run_pointer(o, n_c_tiles) for o in flat])
+    return ptr.reshape(o_tid.shape[:-1] + (n_c_tiles + 1,))
+
+
 def spgemm_sharded(
     problem: ShardedProblem,
     mesh: Optional[Mesh] = None,
     chunk: int = 1024,
     merge: str = "reduce_scatter",
     engine: str = "auto",
-    cached_slots=None,
     engine_dtype=None,
-    interpret: Optional[bool] = None,
+    interpret: bool = False,
 ) -> ShardedResult:
     """Execute a partitioned SpGEMM over the mesh (default: all devices).
 
-    ``engine``: ``'cached'`` runs the flagship Pallas VMEM-cached kernel
-    on every shard (bf16 tiles, f32 accumulation — the single-chip
-    flagship configuration); ``'xla'`` runs the portable f32 HIGHEST
-    scatter-add engine; ``'auto'`` picks cached on TPU, xla elsewhere
-    (off-TPU the cached kernel would run in interpret mode — correct but
-    orders of magnitude slower, so it must be requested explicitly).
+    ``engine``: ``'triton'`` runs the tile kernel on every shard (bf16
+    tiles by default, f32 accumulation); ``'xla'`` runs the portable f32
+    HIGHEST scatter-add engine; ``'auto'`` picks triton on a GPU and xla
+    elsewhere.  ``interpret=True`` runs the kernel on the CPU (tests).
     """
-    from spada_tpu.ops.engine import (_MAX_ITEMS_PER_LAUNCH, _on_tpu,
-                                      default_cached_slots,
-                                      fit_cached_config)
+    from jax.sharding import NamedSharding
 
-    if cached_slots is None:
-        # swept per-tile-edge optima (bench/probes measured; e.g. T=512
-        # needs ogroup=2 — larger groups collapse on VMEM pressure)
-        cached_slots = default_cached_slots(problem.tm, problem.tk,
-                                            problem.tn)
+    from spada_tpu.platform import on_gpu
 
-    was_auto = engine == "auto"
-    if was_auto:
-        engine = "cached" if _on_tpu() else "xla"
-    if engine == "cached" and problem.Wmax > _MAX_ITEMS_PER_LAUNCH:
-        # the per-shard packed plans are SMEM scalar-prefetch operands
-        # (~70k-item cap, see engine._MAX_ITEMS_PER_LAUNCH); the slab
-        # split of the single-chip wrapper has no static-shape analog
-        # inside shard_map, so oversized shards fall back (auto) or fail
-        # loudly — raising n_dp shrinks Wmax
-        if was_auto:
-            engine = "xla"
-        else:
-            raise ValueError(
-                f"shard worklist Wmax={problem.Wmax} exceeds the cached "
-                f"kernel's {_MAX_ITEMS_PER_LAUNCH}-item SMEM cap; "
-                "partition with more dp shards or use engine='xla'")
+    if engine == "auto":
+        engine = "triton" if on_gpu() else "xla"
+    if engine not in ("triton", "xla"):
+        raise ValueError(f"unknown engine {engine!r}")
     if mesh is None:
         devs = np.array(jax.devices()[: problem.n_dp * problem.n_tp])
         mesh = Mesh(devs.reshape(problem.n_dp, problem.n_tp), ("dp", "tp"))
+    shard = NamedSharding(mesh, P("dp", "tp"))
 
-    if engine == "cached":
-        from spada_tpu.parallel.cached import build_cached_plans
-
-        if interpret is None:
-            interpret = not _on_tpu()
+    if engine == "triton":
         dtype = engine_dtype or jnp.bfloat16
-        a_sl, b_sl, depth, ogroup = fit_cached_config(
-            problem.tm, problem.tk, problem.tn, np.dtype(dtype).itemsize,
-            *cached_slots)
-        plans = build_cached_plans(
-            problem.a_tid, problem.b_tid, problem.o_tid, problem.nCmax,
-            a_slots=a_sl, b_slots=b_sl, depth=depth, ogroup=ogroup,
-        )
-        fn = make_sharded_cached_fn(
-            mesh, plans, merge=merge, interpret=interpret,
-            # honor an explicit f32 request (bf16 writeback is only the
-            # flagship default when tiles are bf16)
-            out_dtype=(jnp.float32
-                       if np.dtype(dtype) == np.dtype(np.float32)
-                       else None))
+        fn = make_sharded_triton_fn(mesh, problem.nCmax, merge=merge,
+                                    interpret=interpret)
         c = fn(
-            jnp.asarray(plans.tile_ptr), jnp.asarray(plans.a_pk),
-            jnp.asarray(plans.b_pk),
-            jnp.asarray(problem.a_tiles).astype(dtype),
-            jnp.asarray(problem.b_tiles).astype(dtype),
+            jax.device_put(shard_run_pointers(problem.o_tid,
+                                              problem.nCmax + 1), shard),
+            jax.device_put(problem.a_tid, shard),
+            jax.device_put(problem.b_tid, shard),
+            jax.device_put(problem.a_tiles.astype(dtype), shard),
+            jax.device_put(problem.b_tiles.astype(dtype), shard),
         )
     else:
         fn = make_sharded_fn(mesh, n_c_tiles=problem.nCmax, chunk=chunk,
                              merge=merge)
-        c = fn(
-            jnp.asarray(problem.a_tid), jnp.asarray(problem.b_tid),
-            jnp.asarray(problem.o_tid), jnp.asarray(problem.a_tiles),
-            jnp.asarray(problem.b_tiles),
-        )
+        c = fn(*(jax.device_put(x, shard) for x in (
+            problem.a_tid, problem.b_tid, problem.o_tid,
+            problem.a_tiles, problem.b_tiles)))
     # reduce_scatter pads the tile dim to a multiple of tp; drop the pad
     # (the dump slot at index nCmax stays)
     c = np.asarray(c)[:, : problem.nCmax + 1]

@@ -1,11 +1,11 @@
 """Plan-time structure-aware tile densification.
 
 The tile engines' performance ceiling is set by how densely nonzeros pack
-into MXU tiles: a band straddling the tile grid or hub columns scattered
-across k-tiles inflate both the padded MXU FLOPs and the HBM tile bytes.
+into tiles: a band straddling the tile grid or hub columns scattered
+across k-tiles inflate both the padded tile FLOPs and the HBM tile bytes.
 The reference adapts its *block shapes* to structure cycle-by-cycle
-(scheduler.rs:296-379, rowwise/colwise adjust schemes); the TPU-native
-counterpart implemented here adapts the *layout* at plan time, before any
+(scheduler.rs:296-379, rowwise/colwise adjust schemes); the counterpart
+implemented here adapts the *layout* at plan time, before any
 tile is cut:
 
 - **k-grid anchor** (`choose_k_anchor`): scan a shift of the contraction
@@ -14,7 +14,7 @@ tile is cut:
   diagonal (stencils with off-diagonal coupling) goes from straddling 2-3
   k-tiles per row panel back to the aligned minimum: measured on
   banded_offset(n=64k, band=384, offset=192) at T=384 the work list drops
-  2708 -> 1528 items (1.77x fewer MXU products and tile loads).
+  2708 -> 1528 items (1.77x fewer tile products and tile loads).
 - **k permutation** (`degree_perm`): cluster heavy columns of A (= heavy
   rows of B) so scattered hub structure lands in few dense k-tiles.
   C = (A Q)(Q^T B) is exact for any permutation Q, so no extraction fixup
@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from spada_tpu.config import SpadaConfig
+from spada_tpu.platform import MODEL_TARGET
 from spada_tpu.sparse.csr import CsrMatrix
 
 
@@ -98,14 +99,15 @@ def _tile_stats(a: CsrMatrix, b: CsrMatrix, tm: int, tk: int, tn: int,
 
 def _modeled_time(nA: int, nB: int, W: int, tm: int, tk: int, tn: int,
                   config: SpadaConfig, itemsize: int = 2) -> float:
-    """Engine time model: per-item cost (MXU + measured overhead) in series
-    with unique-tile HBM traffic (the Belady lower bound on loads)."""
-    over = config.engine_item_overhead_s.get(
-        tk, config.engine_acc_s_per_elem * tm * tn + config.engine_item_fixed_s
-    )
-    t_items = W * (2 * tm * tk * tn / config.peak_flops_bf16 + over)
+    """Engine time model on the modelled target device: the larger of the
+    unique-tile HBM traffic and the tile FLOPs at the kernel's fitted
+    share of peak (the form of ``choose_tile_size``).  Its C-tile term is
+    left out: the k transforms leave C's tiles unchanged."""
+    peaks = MODEL_TARGET
     bytes_min = (nA * tm * tk + nB * tk * tn) * itemsize
-    return max(t_items, bytes_min / config.hbm_bytes_per_s)
+    return max(bytes_min / peaks.hbm_bytes_per_s,
+               2 * W * tm * tk * tn / (config.engine_flops_share
+                                       * peaks.flops(itemsize)))
 
 
 def degree_perm(weight: np.ndarray) -> np.ndarray:

@@ -7,7 +7,7 @@ Two families:
    average densities, estimate the merged output-row nnz of an A row as
    ``(1 - prod_g (1 - d_g)^{k_g}) * b_width`` and walk rows until the
    expected psum footprint overflows the budget.  The rebuild uses it to
-   bound dense-accumulator row-panel heights against VMEM.
+   bound dense-accumulator row-panel heights against on-chip memory.
 
 2. **Tile-engine byte model** — the planner's primary signal: for a candidate
    panel height, the exact HBM bytes the work-list engine will move
@@ -110,15 +110,13 @@ def panel_cost_model(
     """Exact byte/flop model of the tile engine on rows [row_start, row_end)
     split into panels of height ``tm``.
 
-    With ``config`` the returned ``cost`` is modeled SECONDS — the same
-    roofline shape the measured kernel obeys:
-    ``max(bytes/BW, W * t_item(tm, tk, tn))`` where the per-item time is the
-    v5e-fitted ``MXU + f32-accumulate + fixed scalar`` decomposition
-    (BENCH_NOTES.md).  Without config, ``cost`` falls back to bytes (pure
-    traffic argmin) — byte-only ranking systematically over-favors thin
-    panels whose per-item overhead dominates.
+    With ``config`` the returned ``cost`` is modeled SECONDS on the
+    modelled target device, the same form as ``choose_tile_size``:
+    ``max(bytes/BW, flops/(share*peak)) + C elements * c_elem``.  Without
+    config, ``cost`` falls back to bytes (pure traffic argmin) — byte-only
+    ranking systematically over-favors thin panels.
 
-    Returns work items W, C tiles, HBM bytes, and mxu flops."""
+    Returns work items W, C tiles, HBM bytes, and tile flops."""
     tk, tn = bt.tk, bt.tn
     s, e = a.indptr[row_start], a.indptr[row_end]
     rows = np.repeat(
@@ -151,16 +149,15 @@ def panel_cost_model(
     )
     mxu_flops = 2 * W * tm * tk * tn
     if config is not None:
-        # round-4 validated SUM form (see choose_tile_size): the per-item
-        # non-MXU chain (f32 accumulate + fixed scalar) does NOT overlap
-        # the streaming/compute bound.  The earlier max() form under-
-        # charged thin panels and ranked mixed-height plans ahead of the
-        # uniform tall plan the hardware prefers (EVAL round-5: spada
-        # 68.7 ms vs tm512 49.8 ms on loc-powerlaw under the old form).
-        t_over = (config.engine_acc_s_per_elem * tm * tn
-                  + config.engine_item_fixed_s)
-        cost = max(bytes_moved / config.hbm_bytes_per_s,
-                   mxu_flops / config.peak_flops_bf16) + W * t_over
+        from spada_tpu.platform import MODEL_TARGET
+
+        # the C-tile term ADDS to the roofline bound (sum form), as in
+        # choose_tile_size
+        peak = (config.engine_flops_share
+                * MODEL_TARGET.flops(itemsize, config.precision))
+        cost = (max(bytes_moved / MODEL_TARGET.hbm_bytes_per_s,
+                    mxu_flops / peak)
+                + c_tiles * tm * tn * config.engine_c_elem_s)
     else:
         cost = float(bytes_moved)
     return dict(

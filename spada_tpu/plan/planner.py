@@ -1,6 +1,6 @@
 """The adaptive planner: row groups -> per-group panel heights -> execution.
 
-This is the TPU-native re-realization of the Spada adaptive scheduler: where
+This is the re-realization of the Spada adaptive scheduler: where
 the simulator adjusts block shapes *during* execution from per-block feedback
 (scheduler.rs:667-727 dispatching to the four adjust schemes), the planner
 makes the same decision *before* jit execution so the device graph stays
@@ -29,6 +29,7 @@ import numpy as np
 from spada_tpu.config import SpadaConfig
 from spada_tpu.plan.estimator import BTileStructure, panel_cost_model
 from spada_tpu.plan.groups import parse_group
+from spada_tpu.platform import MODEL_TARGET
 from spada_tpu.sparse.bsr import BsrMatrix
 from spada_tpu.sparse.csr import CsrMatrix
 
@@ -181,10 +182,11 @@ def make_profiled_measure(a: CsrMatrix, b: CsrMatrix,
             return 0.0
         # warm (compile), then time the steady call
         run_worklist(wl, a_bsr.tiles, b_bsr.tiles,
-                     precision=config.precision)
+                     precision=config.precision, engine=config.engine)
         t0 = _time.perf_counter()
         np.asarray(run_worklist(wl, a_bsr.tiles, b_bsr.tiles,
-                                precision=config.precision))
+                                precision=config.precision,
+                                engine=config.engine))
         return _time.perf_counter() - t0
 
     return measure
@@ -212,7 +214,7 @@ class PlanResult:
     useful_flops: int = 0
     elapsed_s: Optional[float] = None
     # launch state retained for measure_device_perf reuse (one plan, one
-    # BSR/worklist build per CLI run — VERDICT round-4 item 8)
+    # BSR/worklist build per CLI run)
     host_state: Optional[dict] = None
 
     def todense(self) -> np.ndarray:
@@ -309,9 +311,7 @@ def execute_plan(
     from spada_tpu.ops.spgemm import _count_useful_flops
 
     config = config or SpadaConfig()
-    from spada_tpu.ops.spgemm import _resolve_engine
-
-    engine = _resolve_engine(config)
+    engine = config.engine
     dtype = np.float32
     if config.engine_dtype == "bfloat16":
         import jax.numpy as jnp
@@ -372,65 +372,70 @@ def execute_plan(
 # Matrix-level tile-size selection
 # ----------------------------------------------------------------------------
 
+def _c_tile_count(a_rows, a_cols, b_rows, b_cols, n_i: int, n_k: int,
+                  n_j: int) -> int:
+    """Exact number of nonzero C tiles: the tile-level pattern product."""
+    import scipy.sparse as sp
+
+    pa = sp.csr_matrix((np.ones(len(a_rows)), (a_rows, a_cols)),
+                       shape=(n_i, n_k))
+    pb = sp.csr_matrix((np.ones(len(b_rows)), (b_rows, b_cols)),
+                       shape=(n_k, n_j))
+    return int((pa @ pb).nnz)
+
+
 def choose_tile_size(
     a: CsrMatrix,
     b: CsrMatrix,
     config: Optional[SpadaConfig] = None,
     candidates=(128, 256, 384, 512),
 ):
-    """Pick the MXU tile edge T for this matrix pair.
+    """Pick the tile edge T for this matrix pair.
 
     The reference adapts block shapes to sparsity structure cycle-by-cycle;
-    on TPU the equivalent matrix-level decision is the tile granularity:
-    bigger tiles amortize the measured per-work-item overhead but pay
-    padding bytes/FLOPs on sparse structure.  Cost model (round-4,
-    validated within 1% on the banded-64k hardware sweep,
-    tools/probe_item_overhead.py):
+    the matrix-level counterpart here is the tile granularity: bigger tiles
+    amortize the per-work-item cost but pay padding bytes/FLOPs on sparse
+    structure.  Cost model, for the modelled target device
+    (:data:`spada_tpu.platform.MODEL_TARGET`, so a plan is the same on the
+    CPU and on the card):
 
-        t(T) = max(unique_bytes(T) / BW,  mxu(T))  +  W(T) * t_item(T)
+        t(T) = max(unique_bytes(T) / BW,  flops(T) / (share * peak))
+               + nC(T) * T^2 * c_elem
 
-    where unique_bytes counts each distinct nonzero A/B tile once (the
-    Belady cache gets reuse ~free at these working-set sizes) plus the C
-    writeback, mxu = 2 W T^3 / peak, and t_item is the measured per-item
-    non-MXU overhead (config.engine_item_overhead_s).  The overhead term
-    ADDS to the max of the streaming/compute bounds — the per-item
-    scalar->MXU->VPU chain does not overlap them (measured: predictions
-    5.02/3.05/1.98/1.82 ms vs 5.03/3.05/1.98/1.81 measured at
-    T=128/256/384/512).  An earlier max-of-three-terms model, fitted
-    under the old timing harness whose phantom operand pass grew with
-    tile bytes, systematically biased the choice toward small T.
+    where unique_bytes counts each distinct nonzero A/B tile once plus the
+    C writeback, flops = 2 W T^3, nC is the exact C-tile count (the
+    tile-level pattern product), and share / c_elem are the kernel's fitted
+    constants (config.engine_flops_share, config.engine_c_elem_s).
 
     Returns (T, details dict).
     """
     from spada_tpu.sparse.bsr import tiles_of_csr
 
     config = config or SpadaConfig()
+    peaks = MODEL_TARGET
     details = {}
     best_t, best_cost = candidates[0], float("inf")
     itemsize = 2 if config.engine_dtype == "bfloat16" else 4
     for T in candidates:
-        _, a_cols, _ = tiles_of_csr(a, T, T)
-        b_rows_t, _, _ = tiles_of_csr(b, T, T)
-        b_fan = np.bincount(b_rows_t, minlength=-(-b.shape[0] // T))
+        a_rows, a_cols, _ = tiles_of_csr(a, T, T)
+        b_rows_t, b_cols_t, _ = tiles_of_csr(b, T, T)
+        n_k = -(-b.shape[0] // T)
+        b_fan = np.bincount(b_rows_t, minlength=n_k)
         W = int(b_fan[a_cols].sum())
         # count only tiles the worklist actually touches: A tiles whose k
-        # has B fanout, and B tiles in k-rows some A tile reaches — the
-        # full-n_b count overestimated the streaming bound on structures
-        # with partial A/B overlap and biased T selection (ADVICE round-4)
+        # has B fanout, and B tiles in k-rows some A tile reaches
         n_a = int((b_fan[a_cols] > 0).sum())
         n_b = int(b_fan[np.unique(a_cols)].sum())
-        # symbolic nC at this granularity is <= W; approximate with the
-        # nnz-tile count of the (cheap) boolean product bound: use W as an
-        # upper bound and the A-tile-row x B-tile-col grid as a floor
-        n_c_est = min(W, (-(-a.shape[0] // T)) * (-(-b.shape[1] // T)))
-        unique_bytes = (n_a + n_b + n_c_est) * T * T * itemsize
-        t_item = config.engine_item_overhead_s.get(
-            T, 0.18e-6 * (T / 128) ** 1.5
-        )
-        t = (max(unique_bytes / config.hbm_bytes_per_s,
-                 2 * W * T ** 3 / config.peak_flops_bf16)
-             + W * t_item)
-        details[T] = {"W": W, "bytes": unique_bytes, "t_est": t}
+        n_c = _c_tile_count(a_rows, a_cols, b_rows_t, b_cols_t,
+                            -(-a.shape[0] // T), n_k, -(-b.shape[1] // T))
+        unique_bytes = (n_a + n_b) * T * T * itemsize + n_c * T * T * 4
+        flops = 2 * W * T ** 3
+        t = (max(unique_bytes / peaks.hbm_bytes_per_s,
+                 flops / (config.engine_flops_share
+                          * peaks.flops(itemsize, config.precision)))
+             + n_c * T * T * config.engine_c_elem_s)
+        details[T] = {"W": W, "n_c": n_c, "bytes": unique_bytes,
+                      "t_est": t}
         if t < best_cost:
             best_cost, best_t = t, T
     return best_t, details
@@ -451,12 +456,11 @@ def plan_op_dataflow(
 
     The reference's column-wise schemes hill-climb block/window heights
     against the blocks to the LEFT while marching k-major
-    (colwise_reg_adjust.rs:47-109, colwise_irr_adjust.rs:47-110).  TPU
-    realization: the same policy objects, fed the closed-form traffic cost
-    of each visited (row-band, k-block) anchor, commit per-anchor heights
-    ahead of jit; the modal committed height (element-weighted), scaled by
-    the v5e sublane granule (8 rows is the narrowest efficient bf16 tile),
-    becomes the op engine's panel height ``tm``.  This replaces the former
+    (colwise_reg_adjust.rs:47-109, colwise_irr_adjust.rs:47-110).  Here
+    the same policy objects, fed the closed-form traffic cost of each
+    visited (row-band, k-block) anchor, commit per-anchor heights ahead of
+    jit; the modal committed height (element-weighted), scaled by an
+    8-row granule, becomes the op engine's panel height ``tm``.  This replaces the former
     hard-coded ``tm=8`` so schemes 1/2 decide something real.
 
     Returns ``(tm, details)``.
@@ -525,7 +529,7 @@ def plan_op_dataflow(
     if not height_votes:
         return 8, {"scheme": scheme, "anchors": 0, "heights": {}}
     mode_h = max(height_votes.items(), key=lambda kv: kv[1])[0]
-    # scale lane-granular heights to sublane-granular MXU panels
+    # scale lane-granular heights to 8-row-granular tile panels
     tm = 1 << int(np.clip(np.round(np.log2(max(mode_h, 1) * 8)), 3, 7))
     return tm, {"scheme": scheme, "anchors": token,
                 "heights": height_votes, "mode_h": mode_h}

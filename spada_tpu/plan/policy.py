@@ -14,7 +14,7 @@ Scheme map (``adjust_scheme``, scheduler.rs:203 & 675-700):
   3. :class:`RowwiseLatencyPolicy` — rowwise_perf_adjust.rs:121-231 (default)
 
 Heights are abstract "row numbers": powers of two from 1 to ``lane_num`` in
-the reference; the TPU planner instantiates them with MXU panel heights
+the reference; the planner instantiates them with tile panel heights
 (8..128).  Cost metric (rowwise_adjust.rs:227-234):
 ``(dram_miss + psum_dram_writes) * miss_weight + cache_rw``.
 

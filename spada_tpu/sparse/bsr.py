@@ -1,11 +1,11 @@
 """Block-sparse (BSR) device format.
 
-The TPU-native replacement for the reference's element-granular fibers: the
-MXU consumes dense (tm, tn) tiles, so sparsity is exploited at *tile*
+The replacement for the reference's element-granular fibers: the tile
+kernels consume dense (tm, tn) tiles, so sparsity is exploited at *tile*
 granularity.  This is the rebuild's counterpart of the reference's
 block/window decomposition (``BlockTracker``/``WindowTracker``,
 scheduler.rs:69-137): a Spada "block" of shape [h, w] over A becomes a row
-panel of height ``tm`` whose nonzero (tm, tk) tiles feed MXU matmuls.
+panel of height ``tm`` whose nonzero (tm, tk) tiles feed tile matmuls.
 
 Host-side construction is pure NumPy; the device arrays form a pytree that is
 jit/shard_map friendly (static shapes, int32 index vectors).
@@ -163,7 +163,7 @@ class BsrMatrix:
         ).astype(np.int32)
 
     def occupancy(self) -> float:
-        """Scalar nnz / dense tile capacity — MXU efficiency signal."""
+        """Scalar nnz / dense tile capacity — tile-product efficiency signal."""
         cap = self.n_tiles * self.tm * self.tn
         return float(self.nnz_per_tile.sum()) / cap if cap else 0.0
 

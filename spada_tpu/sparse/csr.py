@@ -1,6 +1,6 @@
 """Host-side CSR container.
 
-TPU-native counterpart of the reference's DRAM storage model
+Counterpart of the reference's DRAM storage model
 (``CsrMatStorage``, storage.rs:150-458): flat ``indptr/indices/data`` arrays
 with optional lazy row remapping (``reorder_row``, storage.rs:252-255) and
 element counting helpers (``get_ele_num``).  Unlike the reference this is a
@@ -109,7 +109,7 @@ class CsrMatrix:
     def reorder_rows(self, perm: np.ndarray) -> "CsrMatrix":
         """Return a copy with row ``i`` taken from old row ``perm[i]``.
 
-        Realizes ``reorder_row`` (storage.rs:252-255) eagerly — on TPU the
+        Realizes ``reorder_row`` (storage.rs:252-255) eagerly — the
         remap must be materialized before device transfer anyway.
         """
         perm = np.asarray(perm, dtype=np.int64)

@@ -76,7 +76,7 @@ def test_run_mode_preprocessed_restores_rows(tmp_path, capsys):
 
 def test_nn_autogenerate_out_of_the_box(tmp_path, capsys):
     """`run spada NN <layer>` generates the stock pickle when missing
-    (VERDICT #8: NN category end-to-end without manual setup)."""
+    (the NN category end to end without manual setup)."""
     cfg = tmp_path / "cfg.json"
     cfg.write_text('{"nn_filepath": "%s"}' % (tmp_path / "nn_gemm.pkl"))
     rc, out = _run(["run", "spada", "NN", "resnet50_fc", str(cfg),
@@ -93,7 +93,7 @@ def test_nn_autogenerate_out_of_the_box(tmp_path, capsys):
 
 def test_plan_scheme_profiled_cli(capsys):
     """--plan-scheme profiled reaches the measured-latency planner
-    (VERDICT #6: scheme-3 signal exposed beyond tests)."""
+    (the scheme-3 signal exposed beyond tests)."""
     rc, out = _run(["plan", "spada", "SS", "cari", "--plan-scheme",
                     "profiled"], capsys)
     assert rc == 0

@@ -1,6 +1,6 @@
 """Plan-time structure-aware densification (plan/densify.py).
 
-Covers VERDICT round-2 item 1: the planner must reorder/anchor the layout
+The planner must reorder/anchor the layout
 where structure pays for it (misaligned bands, scale-free graphs) and keep
 natural order where it does not (aligned bands, community-local matrices) —
 and the transformed product must stay scipy-exact after row restoration.

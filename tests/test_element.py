@@ -1,7 +1,7 @@
 """Element-granular (ESC) SpGEMM path: correctness, parity, dispatch.
 
 The element engine realizes the reference's PE multiply-merge datapath
-(simulator.rs:117-235) for scattered sparsity where MXU tiles are empty;
+(simulator.rs:117-235) for scattered sparsity where dense tiles are empty;
 tests pin it against the scipy oracle, check native/numpy planner parity,
 and verify the density-regime dispatch.
 """
@@ -156,7 +156,7 @@ def test_dispatch_never_forces_tile():
 def test_row_slab_streaming_matches_scipy():
     """Expansions over max_slab_products stream through row slabs
     (EscSlabbedResult) and concatenate exactly — the element path's
-    large-scale boundary made explicit (VERDICT r2 weak #8)."""
+    large-scale boundary made explicit."""
     from spada_tpu.ops.element import EscSlabbedResult, spgemm_element
 
     a = powerlaw_csr(512, 512, 6.0, seed=50, dtype=np.float32)
@@ -206,8 +206,8 @@ def test_esc_plan_range_guard():
 
 def test_esc_execute_out_dtype_cached_separately():
     """The runner cache keys on out_dtype; narrow output matches f32 within
-    bf16 rounding (the knob is available even though the bench streams f32 —
-    bf16 writeback measured slower, BENCH_NOTES)."""
+    bf16 rounding (the knob is available even though the bench streams
+    f32)."""
     import jax.numpy as jnp
 
     from spada_tpu.ops.element import (build_esc_plan, esc_execute,
@@ -223,3 +223,16 @@ def test_esc_execute_out_dtype_cached_separately():
     assert str(v16.dtype) == "bfloat16"
     denom = max(np.abs(v32).max(), 1e-30)
     assert np.max(np.abs(v16.astype(np.float32) - v32)) / denom < 2e-2
+
+
+# the four structures, through the XLA executor (esc_execute) and the CSR
+# extraction, against scipy
+@pytest.mark.parametrize("name,a,b", CASES, ids=[c[0] for c in CASES])
+def test_stream_matches_scipy(name, a, b):
+    from spada_tpu.ops.element import EscResult
+
+    plan = build_esc_plan(a, b)
+    vals = esc_execute(esc_operands(plan, a, b))
+    got = EscResult(plan, vals).to_csr()
+    np.testing.assert_allclose(got.todense(), _oracle(a, b), rtol=1e-4,
+                               atol=1e-4)

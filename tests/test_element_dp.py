@@ -74,21 +74,31 @@ def test_strategy_chooser_routes_scattered_to_element_dp():
     assert det["comm_bytes"] == 0
 
 
-def test_element_dp_pallas_backend_matches_xla():
-    """The per-shard Pallas stream executor (the single-chip element
-    default on TPU) inside the dp shard_map == the XLA form == scipy."""
+def test_element_dp_operands_placed_per_device():
+    """build_dp_program places every class stack with its dp sharding, so
+    each device holds only its own slab, and the program matches the
+    single-device executor."""
+    import jax
     import numpy as np
 
     from spada_tpu.io.workloads import localized_powerlaw_csr
-    from spada_tpu.parallel.element_dp import (partition_element,
+    from spada_tpu.ops.element import spgemm_element
+    from spada_tpu.parallel.element_dp import (build_dp_program,
+                                               partition_element,
                                                spgemm_element_dp)
 
+    if len(jax.devices()) < 4:
+        import pytest
+
+        pytest.skip("needs 4 devices")
     a = localized_powerlaw_csr(256, 256, 4.0, seed=15, dtype=np.float32)
     b = localized_powerlaw_csr(256, 256, 4.0, seed=16, dtype=np.float32)
     prob = partition_element(a, b, 4)
-    ref = np.asarray((a.to_scipy() @ b.to_scipy()).todense())
-    r_x = spgemm_element_dp(prob, backend="xla")
-    r_p = spgemm_element_dp(prob, backend="pallas")
-    np.testing.assert_allclose(r_x.todense(), ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(r_p.todense(), r_x.todense(),
+    _, flat = build_dp_program(prob)
+    for x in flat:
+        assert len(x.addressable_shards) == 4
+        assert all(s.data.shape[0] == 1 for s in x.addressable_shards)
+    r_dp = spgemm_element_dp(prob)
+    r_1 = spgemm_element(a, b)
+    np.testing.assert_allclose(r_dp.todense(), r_1.todense(),
                                rtol=1e-6, atol=1e-6)

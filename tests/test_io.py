@@ -1,6 +1,8 @@
 """Ingestion tests: the mtx parser and workload rules against the scipy oracle
 (the reference's own ground-truth path, py2rust.rs:62-97)."""
 
+import os
+
 import numpy as np
 import pytest
 import scipy.io
@@ -14,7 +16,10 @@ from spada_tpu.io.workloads import (
     sort_by_length,
 )
 from spada_tpu.sparse.csr import CsrMatrix
-from tests.conftest import CARI
+
+# not imported from conftest: a package named ``tests`` elsewhere on the
+# path can shadow this directory's
+CARI = os.path.join(os.path.dirname(__file__), "..", "matrices", "cari.mtx")
 
 
 def test_cari_matches_scipy(cari):
@@ -26,7 +31,7 @@ def test_cari_matches_scipy(cari):
 
 
 def test_cari_header_stats(cari):
-    # matrices/cari.mtx header: 400 x 1200, 152800 nnz (BASELINE.md)
+    # matrices/cari.mtx header: 400 x 1200, 152800 nnz
     assert cari.shape == (400, 1200)
     assert cari.nnz == 152800
 
@@ -221,7 +226,7 @@ def test_relu_activation_csr():
     assert lens.min() > 30  # no degenerate empty rows at this density
 
 
-# ---- real-structure PDE generators (VERDICT round-4 missing #1) ----
+# ---- real-structure PDE generators ----
 
 def test_stencil_5pt_exact():
     import scipy.sparse as sp

@@ -9,9 +9,11 @@ from spada_tpu.io.workloads import GemmWorkload, powerlaw_csr, random_csr
 from spada_tpu.parallel import partition_spgemm, spgemm_sharded
 
 
-requires_8 = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 virtual devices"
-)
+@pytest.fixture
+def eight_devices():
+    """Skip unless 8 devices exist (decided here, not at import)."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
 
 
 def _ref(a, b):
@@ -29,8 +31,7 @@ def test_sharded_matches_scipy(n_dp, n_tp):
     np.testing.assert_allclose(res.todense(), _ref(a, b), rtol=1e-5, atol=1e-5)
 
 
-@requires_8
-def test_sharded_8way_powerlaw():
+def test_sharded_8way_powerlaw(eight_devices):
     a = powerlaw_csr(500, 400, 10.0, seed=3)
     b = random_csr(400, 500, 0.04, seed=4)
     prob = partition_spgemm(a, b, 4, 2, tm=32)
@@ -40,8 +41,7 @@ def test_sharded_8way_powerlaw():
     assert prob.imbalance < 3.0
 
 
-@requires_8
-def test_sharded_equals_single_chip():
+def test_sharded_equals_single_chip(eight_devices):
     """Same-code single-device vs 8-device equality (SURVEY.md §4)."""
     a = random_csr(256, 256, 0.08, seed=5)
     b = random_csr(256, 256, 0.08, seed=6)
@@ -94,8 +94,7 @@ def test_halo_matches_scipy():
     np.testing.assert_allclose(res.todense(), _ref(a, b), rtol=1e-5, atol=1e-5)
 
 
-@requires_8
-def test_halo_equals_reduce_strategy():
+def test_halo_equals_reduce_strategy(eight_devices):
     from spada_tpu.parallel.halo import partition_halo, spgemm_halo
 
     a = powerlaw_csr(400, 320, 8.0, seed=13)
@@ -157,23 +156,22 @@ def test_reduce_scatter_merge_equals_psum():
     np.testing.assert_allclose(r_rs.todense(), ref, rtol=1e-4, atol=1e-4)
 
 
-# ---- flagship cached Pallas kernel inside the distributed program ----
-# (VERDICT round-4 item 2: per-shard o-sorted worklists + Belady plans,
-#  the single-chip engine unchanged inside shard_map)
+# ---- the tile kernel (interpret mode on CPU) inside the distributed
+# program: per-shard o-sorted worklists read through run pointers ----
 
-def test_sharded_cached_matches_scipy():
+def test_sharded_triton_matches_scipy():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
     a = random_csr(300, 260, 0.05, seed=31)
     b = random_csr(260, 310, 0.06, seed=32)
     prob = partition_spgemm(a, b, 4, 2, tm=64)
-    res = spgemm_sharded(prob, engine="cached")
+    res = spgemm_sharded(prob, engine="triton", interpret=True)
     ref = _ref(a, b)
     err = np.abs(res.todense() - ref).max() / max(np.abs(ref).max(), 1e-30)
     assert err < 2e-2, err  # bf16 tiles, f32 accumulation
 
 
-def test_sharded_cached_equals_xla_engine():
+def test_sharded_triton_equals_xla_engine():
     """Both per-shard engines run the same decomposition; f32 tiles make
     them agree tightly (the only difference is accumulation order)."""
     import jax.numpy as jnp
@@ -183,75 +181,69 @@ def test_sharded_cached_equals_xla_engine():
     a = random_csr(200, 160, 0.08, seed=33)
     b = random_csr(160, 220, 0.08, seed=34)
     prob = partition_spgemm(a, b, 2, 2, tm=32)
-    r_c = spgemm_sharded(prob, engine="cached", engine_dtype=jnp.float32)
+    r_k = spgemm_sharded(prob, engine="triton", engine_dtype=jnp.float32,
+                         interpret=True)
     r_x = spgemm_sharded(prob, engine="xla")
-    np.testing.assert_allclose(r_c.todense(), r_x.todense(),
+    np.testing.assert_allclose(r_k.todense(), r_x.todense(),
                                rtol=1e-4, atol=1e-4)
 
 
-def test_halo_cached_matches_scipy():
+@pytest.mark.parametrize("D", [1, 8])
+def test_halo_triton_matches_scipy(D):
     from spada_tpu.parallel.halo import partition_halo, spgemm_halo
 
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
+    if len(jax.devices()) < D:
+        pytest.skip(f"needs {D} devices")
     a = powerlaw_csr(400, 320, 8.0, seed=35)
     b = random_csr(320, 400, 0.05, seed=36)
     ref = _ref(a, b)
-    for D in (1, 8):   # 1-device mesh = the TPU parity configuration
-        prob = partition_halo(a, b, D, tm=32)
-        res = spgemm_halo(prob, engine="cached")
-        err = (np.abs(res.todense() - ref).max()
-               / max(np.abs(ref).max(), 1e-30))
-        assert err < 2e-2, (D, err)
+    prob = partition_halo(a, b, D, tm=32)
+    res = spgemm_halo(prob, engine="triton", interpret=True)
+    err = (np.abs(res.todense() - ref).max()
+           / max(np.abs(ref).max(), 1e-30))
+    assert err < 2e-2, (D, err)
 
 
-def test_cached_plans_cover_padding():
-    """Every padded shard worklist o-sorts its pad items into the dump
-    tile's run and the plan's item ranges tile the whole worklist."""
-    from spada_tpu.parallel.cached import build_cached_plans
+def test_shard_worklists_are_o_sorted():
+    """Every padded shard worklist is o-sorted with its pad items in the
+    dump tile's run, so the run pointers tile the whole worklist."""
+    from spada_tpu.parallel.spgemm import shard_run_pointers
 
     a = random_csr(120, 100, 0.08, seed=37)
     b = random_csr(100, 140, 0.08, seed=38)
     prob = partition_spgemm(a, b, 2, 2, tm=16)
-    plans = build_cached_plans(prob.a_tid, prob.b_tid, prob.o_tid,
-                               prob.nCmax)
-    assert plans.tile_ptr.shape[:2] == (2, 2)
+    assert (np.diff(prob.o_tid, axis=-1) >= 0).all()
+    ptr = shard_run_pointers(prob.o_tid, prob.nCmax + 1)
+    assert ptr.shape == (2, 2, prob.nCmax + 2)
     W = prob.a_tid.shape[-1]
-    for d in range(2):
-        for t in range(2):
-            tp_ = plans.tile_ptr[d, t]
-            assert tp_[0] == 0 and tp_[-1] == W
-            assert (np.diff(tp_) >= 0).all()
+    assert (ptr[..., 0] == 0).all() and (ptr[..., -1] == W).all()
+    assert (np.diff(ptr, axis=-1) >= 0).all()
 
 
-def test_sharded_cached_f32_request_honored_tp1():
-    """An explicit engine_dtype=float32 on a single-tp mesh must produce
-    f32 C (the bf16 writeback is only the flagship default for bf16
-    tiles) — round-5 review finding."""
-    import jax.numpy as jnp
+def test_halo_segments_are_o_sorted():
+    from spada_tpu.parallel.halo import partition_halo
 
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 devices")
-    a = random_csr(120, 100, 0.08, seed=81)
-    b = random_csr(100, 140, 0.08, seed=82)
-    prob = partition_spgemm(a, b, 2, 1, tm=32)
-    res = spgemm_sharded(prob, engine="cached", engine_dtype=jnp.float32)
-    np.testing.assert_allclose(res.todense(), _ref(a, b),
-                               rtol=1e-4, atol=1e-4)
+    a = powerlaw_csr(200, 160, 6.0, seed=39)
+    b = random_csr(160, 200, 0.06, seed=40)
+    p = partition_halo(a, b, 4, tm=16)
+    for lo, hi in zip(p.seg_ptr[:-1], p.seg_ptr[1:]):
+        assert (np.diff(p.o_tid[:, lo:hi], axis=-1) >= 0).all()
 
 
-def test_sharded_cached_oversized_shard_falls_back(monkeypatch):
-    """Shard worklists past the SMEM prefetch cap fall back to the XLA
-    engine under engine='auto' and raise under explicit 'cached'."""
-    import spada_tpu.ops.engine as eng
+def test_sharded_inputs_placed_per_device():
+    """Each device holds only its own shard of the stacked inputs (no
+    whole-problem copy on the first device)."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    a = random_csr(200, 160, 0.08, seed=83)
-    b = random_csr(160, 220, 0.08, seed=84)
-    prob = partition_spgemm(a, b, 2, 1, tm=32)
-    monkeypatch.setattr(eng, "_MAX_ITEMS_PER_LAUNCH", 4)
-    assert prob.Wmax > 4
-    res = spgemm_sharded(prob, engine="auto")    # falls back, still right
-    np.testing.assert_allclose(res.todense(), _ref(a, b),
-                               rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError, match="SMEM cap"):
-        spgemm_sharded(prob, engine="cached")
+    if len(jax.devices()) < 4:
+        pytest.skip("needs 4 devices")
+    a = random_csr(160, 120, 0.08, seed=85)
+    b = random_csr(120, 150, 0.08, seed=86)
+    prob = partition_spgemm(a, b, 2, 2, tm=32)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("dp", "tp"))
+    x = jax.device_put(prob.a_tiles, NamedSharding(mesh, P("dp", "tp")))
+    shapes = {s.data.shape for s in x.addressable_shards}
+    assert shapes == {(1, 1) + prob.a_tiles.shape[2:]}
+    res = spgemm_sharded(prob, mesh=mesh)
+    np.testing.assert_allclose(res.todense(), _ref(a, b), rtol=1e-4,
+                               atol=1e-4)

@@ -40,14 +40,20 @@ def test_panel_heights(tm):
 
 
 def test_pallas_interpret_matches_xla():
-    # differential: pallas megakernel (interpret on CPU) vs XLA engine
-    a = random_csr(64, 64, 0.2, seed=14)
-    b = random_csr(64, 64, 0.2, seed=15)
-    cfg_p = SpadaConfig(use_pallas=True)
-    cfg_x = SpadaConfig(use_pallas=False)
-    rp = spgemm(a, b, config=cfg_p, dataflow="rowwise")
-    rx = spgemm(a, b, config=cfg_x, dataflow="rowwise")
-    np.testing.assert_allclose(rp.todense(), rx.todense(), rtol=1e-5, atol=1e-6)
+    # differential: the Pallas tile kernel (interpret on CPU) vs XLA engine
+    from spada_tpu.ops.engine import run_worklist
+
+    a = random_csr(64, 64, 0.2, seed=14, dtype=np.float32)
+    b = random_csr(64, 64, 0.2, seed=15, dtype=np.float32)
+    ab = BsrMatrix.from_csr(a, 32, 32)
+    bb = BsrMatrix.from_csr(b, 32, 32)
+    wl = build_worklist(ab, bb, order="row")
+    rp = run_worklist(wl, ab.tiles, bb.tiles, precision="highest",
+                      engine="triton", interpret=True)
+    rx = run_worklist(wl, ab.tiles, bb.tiles, precision="highest",
+                      engine="xla")
+    np.testing.assert_allclose(np.asarray(rp), np.asarray(rx), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_empty_matrices():
@@ -116,37 +122,13 @@ def test_useful_flops_count(cari_workload):
     assert res.mxu_flops >= res.useful_flops
 
 
-# ---- streaming-kernel engine (interpret mode on CPU) ----
-
-def test_streaming_engine_matches_xla():
-    from spada_tpu.io.workloads import random_csr
-    from spada_tpu.ops.engine import run_worklist_streaming, run_worklist_xla
-    from spada_tpu.ops.worklist import build_worklist
-    from spada_tpu.sparse.bsr import BsrMatrix
-
-    a = random_csr(256, 300, 0.05, seed=21)
-    b = random_csr(300, 280, 0.06, seed=22)
-    ab = BsrMatrix.from_csr(a, 64, 64, dtype=np.float32)
-    bb = BsrMatrix.from_csr(b, 64, 64, dtype=np.float32)
-    wl = build_worklist(ab, bb, order="row")
-    out = np.asarray(run_worklist_streaming(
-        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, precision="highest",
-    ))
-    ref = np.asarray(run_worklist_xla(
-        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, precision="highest",
-    ))
-    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-
-
 def test_engine_dispatch():
     from spada_tpu.ops.engine import select_engine
 
-    # CPU in tests: auto never picks a compiled-TPU-only engine
+    # CPU in tests: auto never picks the kernel (it would run interpreted)
     assert select_engine("row") == "xla"
     assert select_engine("k") == "xla"
-    assert select_engine("row", use_pallas=True) == "pallas_grid"
+    assert select_engine("row", "highest") == "xla"
 
 
 def test_spgemm_bf16_engine_dtype(cari_workload):
@@ -161,33 +143,6 @@ def test_spgemm_bf16_engine_dtype(cari_workload):
     # bf16 tiles: coarse tolerance, but structure must match exactly
     assert (np.abs(got) > 1e-6).sum() == (np.abs(ref) > 1e-6).sum()
     np.testing.assert_allclose(got, ref, rtol=0.05, atol=0.5)
-
-
-def test_cached_engine_matches_xla():
-    """VMEM-cached kernel (host-planned Belady cache) == XLA oracle."""
-    from spada_tpu.io.workloads import powerlaw_csr, random_csr
-    from spada_tpu.ops.engine import run_worklist_cached, run_worklist_xla
-    from spada_tpu.ops.worklist import build_worklist
-    from spada_tpu.sparse.bsr import BsrMatrix
-
-    a = powerlaw_csr(256, 256, 12.0, seed=41)
-    b = random_csr(256, 256, 0.08, seed=42)
-    ab = BsrMatrix.from_csr(a, 64, 64, dtype=np.float32)
-    bb = BsrMatrix.from_csr(b, 64, 64, dtype=np.float32)
-    wl = build_worklist(ab, bb, order="row")
-    out, ap, bp = run_worklist_cached(
-        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, a_slots=10, b_slots=10, depth=4,
-        precision="highest",
-    )
-    ref = np.asarray(run_worklist_xla(
-        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, precision="highest",
-    ))
-    np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-5)
-    # caching must never load more than W and at least the distinct tiles
-    assert len(np.unique(wl.a_tid)) <= ap.n_loads <= wl.n_items
-    assert len(np.unique(wl.b_tid)) <= bp.n_loads <= wl.n_items
 
 
 def test_spgemm_csr_slabbed():
@@ -222,50 +177,12 @@ def test_spgemm_csr_matches_to_csr():
     )
 
 
-def test_engine_item_chunking():
-    """W-chunked launches (SMEM prefetch cap) == single launch."""
-    from spada_tpu.io.workloads import random_csr
-    from spada_tpu.ops import engine as eng
-    from spada_tpu.ops.engine import run_worklist_cached, run_worklist_xla
-    from spada_tpu.ops.worklist import build_worklist
-    from spada_tpu.sparse.bsr import BsrMatrix
-
-    a = random_csr(512, 400, 0.05, seed=80)
-    b = random_csr(400, 512, 0.05, seed=81)
-    ab = BsrMatrix.from_csr(a, 64, 64, dtype=np.float32)
-    bb = BsrMatrix.from_csr(b, 64, 64, dtype=np.float32)
-    wl = build_worklist(ab, bb, order="row")
-    assert wl.n_items > 50
-    old = eng._MAX_ITEMS_PER_LAUNCH
-    try:
-        eng._MAX_ITEMS_PER_LAUNCH = 37  # force many slabs
-        out, _, _ = run_worklist_cached(
-            ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-            n_c_tiles=wl.n_c_tiles, a_slots=10, b_slots=10, depth=4,
-            precision="highest",
-        )
-    finally:
-        eng._MAX_ITEMS_PER_LAUNCH = old
-    ref = np.asarray(run_worklist_xla(
-        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, precision="highest",
-    ))
-    np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-5)
-
-
 def test_oversized_single_tile_run():
-    """A single C tile whose run exceeds the launch cap must be computed via
-    chunked partial-tile launches (no unbounded recursion) and match XLA."""
-    from spada_tpu.io.workloads import random_csr
-    from spada_tpu.ops import engine as eng
-    from spada_tpu.ops.engine import (run_worklist_cached,
-                                      run_worklist_streaming,
-                                      run_worklist_xla)
-    from spada_tpu.ops.worklist import build_worklist
-    from spada_tpu.sparse.bsr import BsrMatrix
+    """A single C tile whose run is far longer than any other (every work
+    item lands on the same C tile) runs as one program's loop and matches
+    XLA."""
+    from spada_tpu.ops.engine import run_worklist_triton, run_worklist_xla
 
-    # one tile row x one tile col, long contraction: every work item lands
-    # on the same C tile
     a = random_csr(32, 800, 0.4, seed=82)
     b = random_csr(800, 32, 0.4, seed=83)
     ab = BsrMatrix.from_csr(a, 32, 32, dtype=np.float32)
@@ -276,83 +193,16 @@ def test_oversized_single_tile_run():
         ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
         n_c_tiles=1, precision="highest",
     ))
-    old = eng._MAX_ITEMS_PER_LAUNCH
-    try:
-        eng._MAX_ITEMS_PER_LAUNCH = 6   # far below the single run's length
-        out_c, ap, bp = run_worklist_cached(
-            ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-            n_c_tiles=1, a_slots=8, b_slots=8, depth=4,
-            precision="highest",
-        )
-        out_s = run_worklist_streaming(
-            ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-            n_c_tiles=1, nbuf=4, precision="highest",
-        )
-    finally:
-        eng._MAX_ITEMS_PER_LAUNCH = old
-    np.testing.assert_allclose(np.asarray(out_c), ref, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(out_s), ref, rtol=1e-5, atol=1e-5)
-    # the aggregated plan stays per-item (no fabricated empties)
-    assert len(ap.slot) == wl.n_items and len(bp.slot) == wl.n_items
-
-
-def test_cached_engine_uitems_pairing_matches_xla():
-    """Item-pairing mode (uitems=2: run tails padded with reserved
-    zero-slot dummy dots) == XLA oracle.  The mode measured slower on
-    hardware (BENCH_NOTES) but stays a kernel option for sweeps — this
-    pins its correctness so it cannot rot silently."""
-    from spada_tpu.io.workloads import powerlaw_csr, random_csr
-    from spada_tpu.ops.engine import run_worklist_cached, run_worklist_xla
-    from spada_tpu.ops.worklist import build_worklist
-    from spada_tpu.sparse.bsr import BsrMatrix
-
-    a = powerlaw_csr(256, 256, 12.0, seed=43)
-    b = random_csr(256, 256, 0.08, seed=44)
-    ab = BsrMatrix.from_csr(a, 64, 64, dtype=np.float32)
-    bb = BsrMatrix.from_csr(b, 64, 64, dtype=np.float32)
-    wl = build_worklist(ab, bb, order="row")
-    out, _, _ = run_worklist_cached(
+    out = run_worklist_triton(
         ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, a_slots=10, b_slots=12, depth=4,
-        precision="highest", uitems=2,
+        n_c_tiles=1, precision="highest", interpret=True,
     )
-    ref = np.asarray(run_worklist_xla(
-        ab.tiles, bb.tiles, wl.a_tid, wl.b_tid, wl.o_tid,
-        n_c_tiles=wl.n_c_tiles, precision="highest",
-    ))
     np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-5)
-
-
-def test_cached_engine_empty_runs_emit_zero_tiles():
-    """C tiles with no work items (lo == hi interior to the schedule) must
-    come out as true zeros — the distributed per-round launches sum such
-    tiles instead of slicing them off (parallel/halo.py)."""
-    import jax.numpy as jnp
-
-    from spada_tpu.ops.engine import run_worklist_cached
-
-    rng = np.random.default_rng(40)
-    a_tiles = jnp.asarray(rng.standard_normal((3, 16, 16)).astype(np.float32))
-    b_tiles = jnp.asarray(rng.standard_normal((3, 16, 16)).astype(np.float32))
-    # tiles 1 and 3 of 5 have no items
-    a_ids = np.array([0, 1, 2, 0], np.int32)
-    b_ids = np.array([1, 2, 0, 2], np.int32)
-    o_ids = np.array([0, 0, 2, 4], np.int32)
-    c, _, _ = run_worklist_cached(a_tiles, b_tiles, a_ids, b_ids, o_ids,
-                                  n_c_tiles=5, a_slots=6, b_slots=6,
-                                  depth=2, ogroup=2)
-    c = np.asarray(c)
-    at, bt = np.asarray(a_tiles), np.asarray(b_tiles)
-    ref = np.zeros_like(c)
-    for ai, bi, oi in zip(a_ids, b_ids, o_ids):
-        ref[oi] += at[ai] @ bt[bi]
-    np.testing.assert_allclose(c, ref, rtol=1e-5, atol=1e-5)
-    assert np.all(c[1] == 0.0) and np.all(c[3] == 0.0)
 
 
 def test_element_plan_bytes_exact():
     """The dispatch's closed-form byte model equals the built plan's
-    operand_bytes exactly (VERDICT round-4 item 7: symmetric fidelity)."""
+    operand_bytes exactly (symmetric fidelity with the tile side)."""
     from spada_tpu.config import SpadaConfig
     from spada_tpu.io.workloads import (localized_powerlaw_csr, powerlaw_csr,
                                         random_csr, stencil_5pt_csr)
@@ -419,43 +269,12 @@ def test_estimate_element_time_exactness_gating():
     assert det_mid["bytes_model"] == "exact"
 
 
-def test_cached_kernel_returns_group_padded_output():
-    """_run_pallas_cached must return the FULL [n_groups*ogroup] array with
-    exact-zero pad tiles: an in-jit out[:nC] trim with nC % ogroup != 0
-    copies all of C (the round-5 'densified-offset T=512 anomaly' root
-    cause, tools/probe_r5b.py) — this pins the no-trim contract."""
-    import jax.numpy as jnp
-
-    from spada_tpu.ops.cacheplan import plan_tile_cache
-    from spada_tpu.ops.engine import _pack_plan, _run_pallas_cached
-
-    rng = np.random.default_rng(41)
-    at = jnp.asarray(rng.standard_normal((4, 16, 16)).astype(np.float32))
-    bt = jnp.asarray(rng.standard_normal((4, 16, 16)).astype(np.float32))
-    a_ids = np.array([0, 1, 2, 3, 0], np.int64)
-    b_ids = np.array([1, 2, 3, 0, 2], np.int64)
-    o_ids = np.array([0, 0, 1, 2, 2], np.int64)   # nC=3, ogroup=2 -> 4 slots
-    nC, ogroup = 3, 2
-    apk = jnp.asarray(_pack_plan(a_ids, plan_tile_cache(a_ids, 6, 2)))
-    bpk = jnp.asarray(_pack_plan(b_ids, plan_tile_cache(b_ids, 6, 2)))
-    tp_ = jnp.asarray(np.searchsorted(o_ids, np.arange(5)).astype(np.int32))
-    c = np.asarray(_run_pallas_cached(
-        tp_, apk, bpk, at, bt, n_c_tiles=nC, a_slots=6, b_slots=6,
-        depth=2, ogroup=ogroup, interpret=True))
-    assert c.shape == (4, 16, 16)          # full group-padded output
-    assert np.all(c[3] == 0.0)             # pad tile is exact zeros
-    ref = np.zeros((3, 16, 16), np.float32)
-    atn, btn = np.asarray(at), np.asarray(bt)
-    for ai, bi, oi in zip(a_ids, b_ids, o_ids):
-        ref[oi] += atn[ai] @ btn[bi]
-    np.testing.assert_allclose(c[:3], ref, rtol=1e-5, atol=1e-5)
-
-
 def test_dispatch_crossover_family_bf16():
-    """Pin the bf16-modeled dispatch on the hardware-measured crossover
-    family (tools/probe_dispatch_crossover.py, BENCH_NOTES round-5):
-    band-384 n=32768 with per-row fill swept across the boundary.
-    Hardware winners: fill>=48 tile, fill<=24 element."""
+    """Pin the bf16-modeled dispatch at the clear extremes of the
+    crossover family band-384 n=32768 with per-row fill swept across the
+    boundary: fill 96 is tile and fill 8 element, each by a modeled
+    margin of 7x or more.  The fills near the boundary are not pinned:
+    no winner there has been measured on the card yet."""
     import dataclasses
 
     from spada_tpu.config import SpadaConfig
@@ -472,29 +291,9 @@ def test_dispatch_crossover_family_bf16():
             rng.standard_normal(n * fill).astype(np.float32))
 
     cfg = dataclasses.replace(SpadaConfig(), engine_dtype="bfloat16")
-    expect = {96: "tile", 48: "tile", 24: "element"}
+    expect = {96: "tile", 8: "element"}
     for fill, want in expect.items():
         a = band_fill(32768, 384, fill, seed=fill)
         b = band_fill(32768, 384, fill, seed=fill + 1)
         choice, det = dispatch_dataflow(a, b, cfg)
         assert choice == want, (fill, choice, det["element"])
-
-
-def test_cached_slot_defaults_and_fit():
-    """The swept per-tile-edge slot table is the defaults source for the
-    distributed paths, and the shared VMEM fit passes the swept configs
-    through unchanged (it is a safety clamp, not an optimizer)."""
-    from spada_tpu.ops.engine import (CACHED_SLOTS_BY_T,
-                                      default_cached_slots,
-                                      fit_cached_config)
-
-    assert default_cached_slots(512, 512, 512) == (6, 10, 4, 2)
-    assert default_cached_slots(384, 384, 384) == (6, 10, 4, 6)
-    assert default_cached_slots(100, 128, 128) == CACHED_SLOTS_BY_T[128]
-    # every swept config fits its own tile edge unchanged (bf16 tiles)
-    for t, cfg in CACHED_SLOTS_BY_T.items():
-        assert fit_cached_config(t, t, t, 2, *cfg) == cfg, t
-    assert fit_cached_config(64, 64, 64, 4, 12, 24, 8, 8) == (12, 24, 8, 8)
-    # slot cap: the packed int32 plan carries 8 slot bits
-    a, b, _, _ = fit_cached_config(64, 64, 64, 4, 400, 500, 8, 8)
-    assert a <= 256 and b <= 256
